@@ -1,0 +1,6 @@
+"""The port's serving engine (EF-family indexes, pair mode)."""
+
+from .resident import ResidentEngine
+from .state import ResidentState, resident_state_from_arrays
+
+__all__ = ["ResidentEngine", "ResidentState", "resident_state_from_arrays"]
