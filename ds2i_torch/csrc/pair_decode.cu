@@ -24,8 +24,7 @@
 // same clamped indices as the TPU kernel's window gather. No TMA, no
 // wgmma: speed is later work.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
@@ -46,13 +45,7 @@ __device__ __forceinline__ uint32_t low_mask(int h) {
   return h >= 32 ? 0xFFFFFFFFu : (h <= 0 ? 0u : (1u << h) - 1u);
 }
 
-// word i of the stream, the index clamped to [0, nw - 1] like the TPU
-// kernel's window gathers (the pad tile reads word 0)
-__device__ __forceinline__ uint32_t load_word(const uint32_t* __restrict__ words,
-                                              long long nw, long long i) {
-  i = i < 0 ? 0 : (i > nw - 1 ? nw - 1 : i);
-  return __ldg(words + i);
-}
+using ds2i::load_word;
 
 // One stream of one tile row: out[it] is the value of slot it*32 + lane.
 // s_win / s_cum: this warp's W words of shared memory each.
@@ -213,8 +206,4 @@ extern "C" int ds2i_pair_decode(const void* dwords, long long dnw,
       R, W, WL, T, num_docs,
       static_cast<int*>(doc_out), static_cast<int*>(freq_out));
   return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" const char* ds2i_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

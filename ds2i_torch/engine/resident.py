@@ -1,17 +1,22 @@
 """Resident-table batched query engine on PyTorch: decode-unique +
 block-gather + row-sort join.
 
-Port of ds2i_tpu/engine/resident.py for EF-family indexes (ef, single,
-uniform, opt) in pair mode, exhaustive ops only. Everything static lives
-on the device from engine init: the compressed words, the per-tile
-decode fields and, once ranked ops run, the norm cache. A query batch
-uploads only its layout and downloads only results.
+Port of ds2i_tpu/engine/resident.py, exhaustive ops only, for
+EF-family indexes (ef, single, uniform, opt) in pair mode and for the
+block indexes block_optpfor and block_interpolative in split mode.
+Everything static lives on the device from engine init: the compressed
+words, the per-tile decode fields and, once ranked ops run, the norm
+cache. A query batch uploads only its layout and downloads only results.
 
 Per part (one host plan each):
 
   1. gather tile field rows from the resident tables by uploaded tile id
-  2. per (W, WL, T) group: decode both streams of each UNIQUE tile once
-     (ops.pair_decode, the hand-written CUDA kernel on the card)
+  2. decode each UNIQUE tile once, by hand-written CUDA kernels on the
+     card: pair mode, per (W, WL, T) group, both streams in one launch
+     (ops.pair_decode); split mode, each stream in its own group-major
+     order, per OptPFor (b, E) or interpolative (W, T) group
+     (ops.block_decode), the freq blocks then realigned to the docs
+     order by one block-row gather (blkperm)
   3. doc-term weights f/(f+den) from the init-time norm cache
   4. each query row gathers its terms' 32-slot blocks by block index
   5. per length bucket: one stable row sort by docid joins the postings,
@@ -31,10 +36,13 @@ import math
 import numpy as np
 import torch
 
+from ds2i_tpu.codecs.interpolative import InterpolativeBlock
+from ds2i_tpu.codecs.optpfor import OptPForBlock
 from ds2i_tpu.queries.bm25 import BM25
 from ds2i_tpu.queries.parsing import query_freqs
 
-from ..ops import pair_decode
+from ..ops import block_decode, pair_decode
+from .block_tiles import BF_EX_BASE, build_block_tables, build_exception_patches
 from .state import resident_state_from_arrays
 from .tiles import F_NVALS, N_FIELDS, TILE, build_tile_tables
 
@@ -63,15 +71,41 @@ def _decode_pair_blocks(docs_words, freqs_words, df, ff, st, R, num_docs):
     return doc.reshape(R * (T // BLOCK), BLOCK), freq.float().reshape(R * (T // BLOCK), BLOCK)
 
 
-def _norm_cache_step(docs_words, tiles_docs, norm_den, gtile_ids, groups, num_docs):
+def _decode_doc_group_blocks(docs_words, df, st, num_docs):
+    """One split-mode group's docids as masked, padded 32-slot block rows
+    (R * max(T//32, 1), 32); narrow tail groups (T < 32) pad to one block
+    with num_docs. Shared by the query step and the norm cache. The
+    stream decode (resident.py:_decode_block_stream) is
+    block_decode.block_stream: st = ("opt", b, 0, 128) | ("optp", b, E,
+    128) | ("interp", W, T); "var" and "qmx" wait for ROADMAP item 8."""
+    doc = block_decode.block_stream(docs_words, df, st, num_docs, True)
+    if st[-1] < BLOCK:
+        doc = torch.nn.functional.pad(doc, (0, BLOCK - st[-1]), value=num_docs)
+    return doc.reshape(-1, BLOCK)
+
+
+def _decode_freq_group_blocks(freqs_words, ff, st):
+    """One split-mode group's raw freqs as masked, padded 32-slot block
+    rows; narrow tail groups pad with 0."""
+    fv = block_decode.block_stream(freqs_words, ff, st, 0, False)
+    if st[-1] < BLOCK:
+        fv = torch.nn.functional.pad(fv, (0, BLOCK - st[-1]))
+    return fv.reshape(-1, BLOCK)
+
+
+def _norm_cache_step(docs_words, tiles_docs, norm_den, gtile_ids, groups, num_docs, split):
     """One-time decode of EVERY tile's docids -> per-slot BM25
     denominators, (total_blocks, 32) f32 in the canonical group-major
     block order (docs stream only)."""
     blocks = []
     for off, R, st in groups:
         df = tiles_docs[gtile_ids[off:off + R]]
-        doc, _ = pair_decode.decode_pair(docs_words, None, df, None, st[1], st[2], st[-1], num_docs)
-        blocks.append(doc.reshape(-1, BLOCK))
+        if split:
+            blocks.append(_decode_doc_group_blocks(docs_words, df, st, num_docs))
+        else:
+            doc, _ = pair_decode.decode_pair(
+                docs_words, None, df, None, st[1], st[2], st[-1], num_docs)
+            blocks.append(doc.reshape(-1, BLOCK))
     d = torch.cat(blocks, dim=0).long()
     return norm_den[d.clamp(0, num_docs - 1)]
 
@@ -85,10 +119,37 @@ def _cached_den_rows(den_blocks, tile_gblk0, ids, T):
     return den_blocks[idx.reshape(-1)]
 
 
-def _decode_weight_blocks(state, gtile_ids, groups, num_docs, ranked):
+def _decode_weight_blocks(state, gtile_ids, gtile_f, blkperm, groups, groups_f,
+                          num_docs, ranked):
     """Decode every tile of the part into 32-slot block rows: returns
     (docs32 int32, w32 f32) — docids (pads carry num_docs) and doc-term
     weights (ranked) or 1.0 presence flags."""
+    if groups_f:
+        # SPLIT mode (block indexes): each stream decodes in its own
+        # group-major order; freq blocks realign to docs order by one
+        # contiguous block-row gather
+        d_blocks, f_blocks, den_rows = [], [], []
+        for off, R, st in groups:
+            ids = gtile_ids[off:off + R]
+            d_blocks.append(_decode_doc_group_blocks(
+                state.docs_words, state.tiles_docs[ids], st, num_docs))
+            if ranked:
+                den_rows.append(_cached_den_rows(state.den_blocks, state.tile_gblk0, ids, st[-1]))
+        for off, R, st in groups_f:
+            ids = gtile_f[off:off + R]
+            f_blocks.append(_decode_freq_group_blocks(
+                state.freqs_words, state.tiles_freqs[ids], st))
+        docs32 = torch.cat(d_blocks, dim=0)
+        freq32 = torch.cat(f_blocks, dim=0)[blkperm].float()
+        if ranked:
+            den = torch.cat(den_rows, dim=0)
+            # one f32 add + one f32 divide, as in the pair branch
+            w = torch.where(docs32 < num_docs, freq32 / (freq32 + den), 0.0)
+        else:
+            w = torch.where(docs32 < num_docs, 1.0, 0.0)
+        return docs32, w
+
+    # PAIR mode (EF family): both streams share the group layout
     docs_blocks, w_blocks = [], []
     for off, R, st in groups:
         ids = gtile_ids[off:off + R]
@@ -106,10 +167,11 @@ def _decode_weight_blocks(state, gtile_ids, groups, num_docs, ranked):
     return torch.cat(docs_blocks, dim=0), torch.cat(w_blocks, dim=0)
 
 
-def _decode_part(state, gtile_ids, groups, num_docs, ranked):
+def _decode_part(state, gtile_ids, gtile_f, blkperm, groups, groups_f, num_docs, ranked):
     """Decode stage of one part; the slot tables pad to a power-of-two row
     count (pad rows: docid num_docs, weight 0), as in the JAX engine."""
-    docs32, w32 = _decode_weight_blocks(state, gtile_ids, groups, num_docs, ranked)
+    docs32, w32 = _decode_weight_blocks(
+        state, gtile_ids, gtile_f, blkperm, groups, groups_f, num_docs, ranked)
     rows = docs32.shape[0]
     rp = _pow2_at_least(rows)
     if rp > rows:
@@ -173,11 +235,15 @@ def _pack_rows(rows, pack_idx, fscale, fetch16):
     return (out * fscale).half() if fetch16 else out
 
 
-def _resident_step(state, gtile_ids, bucket_dir, bucket_qwtab, bucket_tgt,
-                   pack_idx, groups, num_docs, k, ops, tmax, fetch16, fscale):
-    """One part: decode -> per-bucket join -> pack."""
+def _resident_step(state, gtile_ids, gtile_f, blkperm, bucket_dir, bucket_qwtab,
+                   bucket_tgt, pack_idx, groups, groups_f, num_docs, k, ops, tmax,
+                   fetch16, fscale):
+    """One part: decode -> per-bucket join -> pack. gtile_f, blkperm and
+    groups_f are the freqs-order layout of split mode (unused in pair
+    mode, where groups_f is empty)."""
     ranked = ("or" in ops) or ("and" in ops)
-    docs32, w32 = _decode_part(state, gtile_ids, groups, num_docs, ranked)
+    docs32, w32 = _decode_part(
+        state, gtile_ids, gtile_f, blkperm, groups, groups_f, num_docs, ranked)
     rows = tuple(
         _join_bucket(docs32, w32, d, q, t, num_docs=num_docs, k=k, ops=ops, tmax=tmax)
         for d, q, t in zip(bucket_dir, bucket_qwtab, bucket_tgt)
@@ -189,23 +255,23 @@ def _resident_step(state, gtile_ids, bucket_dir, bucket_qwtab, bucket_tgt,
 
 
 class ResidentEngine:
-    """Resident-table engine over an EF-family index; minimal per-batch
-    transfer, one decode group set per part, decode shared across
-    queries."""
+    """Resident-table engine over an EF-family index (pair mode) or a
+    block_optpfor / block_interpolative index (split mode); minimal
+    per-batch transfer, one decode group set per part, decode shared
+    across queries."""
 
     MIN_L = 64
 
     def __init__(self, index, wdata=None, max_part_slots=1 << 21,
                  max_part_queries=16384, device=None):
-        self._init_host(index, max_part_slots, max_part_queries)
+        docs_words, freqs_words = self._init_host(index, max_part_slots, max_part_queries)
         t = self.tiles
         norm_lens = (
             np.asarray(wdata.norm_lens, dtype=np.float32)
             if wdata is not None else np.ones(self.num_docs, np.float32)
         )
         self._attach(resident_state_from_arrays(
-            index.docs_sequences.bits_bv.words, index.freqs_sequences.bits_bv.words,
-            self._with_pad(t.docs), self._with_pad(t.freqs),
+            docs_words, freqs_words, self._with_pad(t.docs), self._with_pad(t.freqs),
             BM25.norm_denominator(norm_lens), device=device,
         ))
 
@@ -225,18 +291,17 @@ class ResidentEngine:
         return eng
 
     def _init_host(self, index, max_part_slots, max_part_queries):
-        if not hasattr(index, "docs_sequences"):
-            raise NotImplementedError(
-                "ds2i_torch's ResidentEngine serves EF-family indexes (ef, "
-                "single, uniform, opt); block indexes wait for ROADMAP queue 1 "
-                f"item 2 (split-mode block decode), got {type(index).__name__}"
-            )
+        """Host tables and plan state; returns the (docs, freqs) word
+        arrays to upload (one array for both in split mode)."""
         self.index = index
         self.num_docs = index.num_docs()
         self.max_part_slots = max_part_slots
         self.max_part_queries = max_part_queries
         num_lists = index.size()
-        t = self._init_ef(index)
+        if hasattr(index, "docs_sequences"):
+            t, words = self._init_ef(index)
+        else:
+            t, words = self._init_block(index)
         self.tiles = t
         nt = len(t.tile_list)
         self.pad_tile = nt
@@ -249,6 +314,7 @@ class ResidentEngine:
         np.add.at(self.list_n, t.tile_list, nvals)
         self.list_blocks = np.zeros(num_lists, dtype=np.int64)
         np.add.at(self.list_blocks, t.tile_list, self.tile_blocks)
+        return words
 
     def _with_pad(self, a):
         """Resident field table: the tile rows plus one trailing pad row
@@ -286,13 +352,63 @@ class ResidentEngine:
         ]
         self.tile_gid = inv.astype(np.int64)
         self._empty_statics = ("ef", 4, 4, TILE)
+        self.split = False
         for coll_bv in (index.docs_sequences.bits_bv, index.freqs_sequences.bits_bv):
             if coll_bv.nbits >= 2**36:
                 raise ValueError(
                     "device engine limit: 8GB per resident stream (i32 WORD "
                     "cursors in the tile tables)"
                 )
-        return t
+        return t, (index.docs_sequences.bits_bv.words, index.freqs_sequences.bits_bv.words)
+
+    def _init_block(self, index):
+        """block_freq_index tiles (resident.py:_init_block): one tile per
+        128-int block, per-stream group statics ("opt", b, E, 128) or
+        ("interp", W, T), and ONE word stream for docs and freqs: the
+        index bytes, then the resident OptPFor exception patch pairs."""
+        if index.codec not in (OptPForBlock, InterpolativeBlock):
+            raise NotImplementedError(
+                f"ds2i_torch's ResidentEngine serves block_optpfor and "
+                f"block_interpolative; {index.codec.__name__} blocks wait for "
+                f"{block_decode.ITEM8}"
+            )
+        self.split = True
+        t, slist_d, gid_d, slist_f, gid_f = build_block_tables(index)
+        self._empty_statics = ("interp", 4, BLOCK)
+        data = np.asarray(index.lists, dtype=np.uint8)
+        pad = (-len(data)) % 4
+        words = np.concatenate([data, np.zeros(pad + 8, np.uint8)]).view("<u4")
+        # resident exception patch tables (the JAX engine's default): the
+        # Simple16 exception streams decode ONCE here into (position,
+        # high<<b) pairs appended to the stream; BF_EX_BASE holds each
+        # row's first pair word and those groups become "optp"
+        if any(s[0] == "opt" and s[2] > 0 for s in slist_d + slist_f):
+            patch, (base_d, base_f) = build_exception_patches(words, [t.docs, t.freqs])
+            nw0 = np.int64(len(words))
+            if nw0 + len(patch) >= 2**31:
+                # the JAX engine drops back to the in-pass Simple16 decode
+                # here, which the port does not carry
+                raise ValueError(
+                    "device engine limit: 8GB of resident words (index bytes plus "
+                    "exception patch pairs) for i32 word cursors; larger indexes "
+                    "wait for int64 cursors (ROADMAP queue 1 item 10)"
+                )
+            t.docs[:, BF_EX_BASE] = np.where(base_d >= 0, nw0 + 2 * base_d, 0).astype(np.int32)
+            t.freqs[:, BF_EX_BASE] = np.where(base_f >= 0, nw0 + 2 * base_f, 0).astype(np.int32)
+            words = np.concatenate([words, patch.astype(np.uint32)])
+            remap = lambda s: ("optp",) + s[1:] if s[0] == "opt" and s[2] > 0 else s  # noqa: E731
+            slist_d = [remap(s) for s in slist_d]
+            slist_f = [remap(s) for s in slist_f]
+        elif len(words) >= 2**31:
+            raise ValueError(
+                "device engine limit: 8GB per resident stream (i32 word cursors); "
+                "larger indexes wait for int64 cursors (ROADMAP queue 1 item 10)"
+            )
+        self.group_statics_d = slist_d
+        self.tile_gid_d = gid_d
+        self.group_statics_f = slist_f
+        self.tile_gid_f = gid_f
+        return t, (words, words)
 
     def _ensure_norm_cache(self):
         """Materialize the per-slot BM25-denominator cache (one decode of
@@ -303,7 +419,7 @@ class ResidentEngine:
         nt = self.pad_tile
         utidx = np.arange(nt, dtype=np.int64)
         groups, gtile_ids, tblk, sent_blk, _ = self._order_groups(
-            utidx, self.tile_gid, self.group_statics)
+            utidx, *self._docs_grouping())
         g0 = np.full(nt + 1, sent_blk, dtype=np.int64)
         if nt:
             g0[:nt] = tblk
@@ -311,8 +427,14 @@ class ResidentEngine:
         s.den_blocks = _norm_cache_step(
             s.docs_words, s.tiles_docs, s.norm_den,
             torch.from_numpy(gtile_ids.astype(np.int64)).to(self.device),
-            groups, self.num_docs,
+            groups, self.num_docs, self.split,
         )
+
+    def _docs_grouping(self):
+        """(tile gids, statics) of the docs-order decode groups."""
+        if self.split:
+            return self.tile_gid_d, self.group_statics_d
+        return self.tile_gid, self.group_statics
 
     # -- host batch layout ----------------------------------------------------
 
@@ -395,9 +517,21 @@ class ResidentEngine:
         return tuple(groups), gtile_ids, tblk, sent_blk, gblk
 
     def _split_layout(self, utidx, tblk, nb_d):
-        """Freqs-order groups + block permutation: trivial placeholders in
-        pair mode (split mode is ROADMAP queue 1 item 2)."""
-        return (), np.zeros(1, dtype=_I32), np.zeros(1, dtype=_I32)
+        """Freqs-order groups + docs->freqs block permutation for split
+        (block-index) parts; trivial placeholders for pair mode."""
+        if not self.split:
+            return (), np.zeros(1, dtype=_I32), np.zeros(1, dtype=_I32)
+        groups_f, gtile_f, tblk_f, sent_f, _ = self._order_groups(
+            utidx, self.tile_gid_f, self.group_statics_f)
+        blkperm = np.full(nb_d, sent_f, dtype=_I32)
+        if len(utidx):
+            bpt = self.tile_blocks[utidx]
+            tot_b = int(bpt.sum())
+            bex = np.cumsum(bpt) - bpt
+            blkperm[np.repeat(tblk - bex, bpt) + np.arange(tot_b, dtype=np.int64)] = (
+                np.repeat(tblk_f - bex, bpt) + np.arange(tot_b, dtype=np.int64)
+            )
+        return groups_f, gtile_f, blkperm
 
     def _part_plan(self, terms, qw, counts, k, ops, tmax, qids):
         """Layout for one part: group-major unique-tile ids + per-bucket
@@ -423,7 +557,7 @@ class ResidentEngine:
 
         # --- group by decode class, group-major row ids
         groups, gtile_ids, tblk, sent_blk, nb_d = self._order_groups(
-            utidx, self.tile_gid, self.group_statics)
+            utidx, *self._docs_grouping())
         groups_f, gtile_f, blkperm = self._split_layout(utidx, tblk, nb_d)
 
         # --- per-unique-term block lists (group-major block ids)
@@ -619,17 +753,19 @@ class ResidentEngine:
             if dev not in cache:
                 cache[dev] = (
                     put(p["gtile_ids"].astype(np.int64)),
+                    put(p["gtile_f"].astype(np.int64)),
+                    put(p["blkperm"].astype(np.int64)),
                     tuple(put(b["dir"]) for b in bb),
                     tuple(put(b["qwtab"]) for b in bb),
                     tuple(put(b["tgt"]) for b in bb),
                     put(p["pack_idx"].astype(np.int64)),
                 )
-            d_gt, d_dir, d_qw, d_tgt, d_pidx = cache[dev]
+            d_gt, d_gf, d_bp, d_dir, d_qw, d_tgt, d_pidx = cache[dev]
             fetch16 = "counts" not in p["ops"] and p["fscale"] is not None
             out = _resident_step(
-                self.state, d_gt, d_dir, d_qw, d_tgt, d_pidx,
-                groups=p["groups"], num_docs=self.num_docs, k=p["k"],
-                ops=p["ops"], tmax=p["tmax"], fetch16=fetch16,
+                self.state, d_gt, d_gf, d_bp, d_dir, d_qw, d_tgt, d_pidx,
+                groups=p["groups"], groups_f=p["groups_f"], num_docs=self.num_docs,
+                k=p["k"], ops=p["ops"], tmax=p["tmax"], fetch16=fetch16,
                 fscale=p["fscale"] if fetch16 else None,
             )
             if out.is_cuda:

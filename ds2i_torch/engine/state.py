@@ -1,9 +1,11 @@
 """The resident device state of a ResidentEngine.
 
 What the JAX engine keeps in HBM (ds2i_tpu/engine/resident.py:696-755,
-864-899, 1390-1391): the two compressed word streams, the per-tile field
-tables with their trailing pad row, the per-doc BM25 denominators, and
-the init-time norm cache. `resident_state_from_arrays` turns those arrays,
+864-899, 1390-1391, 1484-1486): the compressed word streams, the
+per-tile field tables with their trailing pad row, the per-doc BM25
+denominators, and the init-time norm cache. A block index (split mode)
+has ONE word stream for docs and freqs: both fields then name the same
+tensor, uploaded and counted once. `resident_state_from_arrays` turns those arrays,
 given as numpy (for example read back from a JAX engine), into the port's
 tensors; `ResidentEngine.from_state` serves over them.
 """
@@ -21,7 +23,7 @@ from .tiles import N_FIELDS
 @dataclass
 class ResidentState:
     docs_words: torch.Tensor  # int32[nw_d]: the uint32 words' bits
-    freqs_words: torch.Tensor  # int32[nw_f]
+    freqs_words: torch.Tensor  # int32[nw_f]; docs_words itself in split mode
     tiles_docs: torch.Tensor  # int32[Nt+1, N_FIELDS]; last row is the pad tile
     tiles_freqs: torch.Tensor  # int32[Nt+1, N_FIELDS]
     norm_den: torch.Tensor  # float32[num_docs]: k1*(1-b+b*norm_len)
@@ -33,9 +35,9 @@ class ResidentState:
         return self.docs_words.device
 
     def nbytes(self):
-        """Bytes of all resident tensors."""
-        tensors = (getattr(self, f.name) for f in fields(self))
-        return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+        """Bytes of all resident tensors (a tensor named twice counts once)."""
+        tensors = {id(t): t for t in (getattr(self, f.name) for f in fields(self)) if t is not None}
+        return sum(t.numel() * t.element_size() for t in tensors.values())
 
 
 def _tensor(a, dtype=None):
@@ -66,7 +68,8 @@ def resident_state_from_arrays(docs_words, freqs_words, tiles_docs, tiles_freqs,
     """Build a ResidentState on `device` (None: CUDA) from numpy arrays
     laid out as the JAX engine holds them. den_blocks and tile_gblk0 go
     together; when absent, the engine builds the norm cache on first
-    ranked use."""
+    ranked use. Given the same array for docs_words and freqs_words (a
+    block index's one stream), the state holds and uploads one tensor."""
     if (den_blocks is None) != (tile_gblk0 is None):
         raise ValueError("den_blocks and tile_gblk0 come together")
     dev = resolve_device(device)
@@ -74,9 +77,10 @@ def resident_state_from_arrays(docs_words, freqs_words, tiles_docs, tiles_freqs,
     tf = _table(tiles_freqs, "tiles_freqs")
     if td.shape != tf.shape:
         raise ValueError(f"tiles_docs {tuple(td.shape)} != tiles_freqs {tuple(tf.shape)}")
+    dw = _words(docs_words, "docs_words")
     state = ResidentState(
-        docs_words=_words(docs_words, "docs_words"),
-        freqs_words=_words(freqs_words, "freqs_words"),
+        docs_words=dw,
+        freqs_words=dw if freqs_words is docs_words else _words(freqs_words, "freqs_words"),
         tiles_docs=td,
         tiles_freqs=tf,
         norm_den=_tensor(norm_den, np.float32),
@@ -86,8 +90,11 @@ def resident_state_from_arrays(docs_words, freqs_words, tiles_docs, tiles_freqs,
         state.tile_gblk0 = _tensor(tile_gblk0, np.int64)
         if state.tile_gblk0.shape[0] != td.shape[0]:
             raise ValueError("tile_gblk0 needs one entry per tile row (pad row included)")
+    moved = {}
     for f in fields(state):
         t = getattr(state, f.name)
         if t is not None:
-            setattr(state, f.name, t.to(dev))
+            if id(t) not in moved:
+                moved[id(t)] = t.to(dev)
+            setattr(state, f.name, moved[id(t)])
     return state

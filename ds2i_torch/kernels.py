@@ -1,8 +1,11 @@
 """Build and bind the port's CUDA kernels.
 
-Each kernel source under csrc/ has a plain C entry point. It is compiled
-at first use with nvcc into build/ds2i_torch/ at the repository root,
-keyed by a hash of the sources, and loaded with ctypes (the pattern of
+Each kernel source csrc/<name>.cu has a plain C entry point and is built
+into a shared library of its own, libds2i_<name>_<hash>.so under
+build/ds2i_torch/ at the repository root, keyed by a hash of the source,
+the shared headers (csrc/*.cuh) and the flags. The first call to lib()
+starts one nvcc for every library not yet built, all together, waits for
+them, and loads every library with ctypes (the pattern of
 ds2i_tpu/native). Nothing is compiled when this module is imported.
 """
 
@@ -21,15 +24,28 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]  # never --use_fast_math: the kernels' integer work must stay exact
 
-_LIB = None
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_BLOCK_ARGS = [
+    _p, _ll, _p,  # words, word count, field rows (R, N_FIELDS) int32
+    _i, _i, _i, _i,  # R, statics (optpfor: b, E; interp: W, 0), T
+    _i, _i,  # is_docs, num_docs
+    _p, _p,  # out (R, T) int32, cudaStream_t
+]
+# entry point and argtypes of each kernel library (csrc/<name>.cu)
+ENTRY_POINTS = {
+    "pair_decode": ("ds2i_pair_decode", [
+        _p, _ll, _p, _ll,  # docs words, count; freqs words (or NULL), count
+        _p, _p,  # docs / freqs field rows (R, N_FIELDS) int32
+        _i, _i, _i, _i, _i,  # R, W, WL, T, num_docs
+        _p, _p,  # doc_out, freq_out (or NULL)
+        _p,  # cudaStream_t
+    ]),
+    "optpfor_decode": ("ds2i_optpfor_decode", _BLOCK_ARGS),
+    "interp_decode": ("ds2i_interp_decode", _BLOCK_ARGS),
+}
+
+_LIBS = {}
 _LOCK = threading.Lock()
-
-
-def _sources():
-    return sorted(
-        os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
-        if f.endswith((".cu", ".cuh"))
-    )
 
 
 def _nvcc():
@@ -43,52 +59,64 @@ def _nvcc():
     return path
 
 
-def _build():
-    srcs = _sources()
+def _lib_path(name, headers):
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
-        with open(s, "rb") as f:
-            h.update(os.path.basename(s).encode())
+    for path in [*headers, os.path.join(_CSRC, f"{name}.cu")]:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode())
             h.update(f.read())
-    so = os.path.join(BUILD_DIR, f"libds2i_torch_{h.hexdigest()[:16]}.so")
-    if not os.path.exists(so):
+    return os.path.join(BUILD_DIR, f"libds2i_{name}_{h.hexdigest()[:16]}.so")
+
+
+def _build():
+    """Build every missing library, one nvcc each, all at once; returns
+    {name: path}."""
+    headers = sorted(
+        os.path.join(_CSRC, f) for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    paths = {name: _lib_path(name, headers) for name in ENTRY_POINTS}
+    todo = {name: so for name, so in paths.items() if not os.path.exists(so)}
+    if todo:
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.tmp{os.getpid()}"
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[s for s in srcs if s.endswith(".cu")]],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}) building {so}:\n{proc.stderr}"
+        nvcc = _nvcc()
+        procs = {
+            name: subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", f"{so}.tmp{os.getpid()}",
+                 os.path.join(_CSRC, f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             )
-        os.replace(tmp, so)
-    return so
+            for name, so in todo.items()
+        }
+        failed = []
+        for name, proc in procs.items():
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu (exit {proc.returncode}):\n{err}")
+            else:
+                os.replace(f"{todo[name]}.tmp{os.getpid()}", todo[name])
+        if failed:
+            raise RuntimeError("nvcc failed building " + "\n".join(failed))
+    return paths
 
 
-def lib():
-    """The loaded kernel library; builds it on first call."""
-    global _LIB
+def lib(name):
+    """The loaded library of csrc/<name>.cu; the first call builds and
+    loads them all."""
     with _LOCK:
-        if _LIB is None:
-            handle = ctypes.CDLL(_build())
-            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            handle.ds2i_pair_decode.restype = ctypes.c_int
-            handle.ds2i_pair_decode.argtypes = [
-                p, ll, p, ll,  # docs words, count; freqs words (or NULL), count
-                p, p,  # docs / freqs field rows (R, N_FIELDS) int32
-                i, i, i, i, i,  # R, W, WL, T, num_docs
-                p, p,  # doc_out, freq_out (or NULL)
-                p,  # cudaStream_t
-            ]
-            handle.ds2i_cuda_error_string.restype = ctypes.c_char_p
-            handle.ds2i_cuda_error_string.argtypes = [i]
-            _LIB = handle
-        return _LIB
+        if not _LIBS:
+            for lib_name, path in _build().items():
+                handle = ctypes.CDLL(path)
+                fn_name, argtypes = ENTRY_POINTS[lib_name]
+                fn = getattr(handle, fn_name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = argtypes
+                handle.ds2i_cuda_error_string.restype = ctypes.c_char_p
+                handle.ds2i_cuda_error_string.argtypes = [ctypes.c_int]
+                _LIBS[lib_name] = handle
+        return _LIBS[name]
 
 
-def check(rc, what):
-    """Raise if a kernel entry point returned a CUDA error."""
+def check(handle, rc, what):
+    """Raise if a kernel entry point of `handle` returned a CUDA error."""
     if rc != 0:
-        msg = lib().ds2i_cuda_error_string(rc).decode()
+        msg = handle.ds2i_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

@@ -151,7 +151,7 @@ def decode_pair(docs_words, freqs_words, dfld, ffld, W, WL, T, num_docs):
     if docs_words.device.type != "cuda":
         raise ValueError(f"decode_pair runs on cuda or cpu, not {docs_words.device}")
     _check_cuda_args(docs_words, freqs_words, dfld, ffld, W, WL, T)
-    lib = kernels.lib()
+    lib = kernels.lib("pair_decode")
     R = dfld.shape[0]
     doc = torch.empty((R, T), dtype=torch.int32, device=docs_words.device)
     freq = None if freqs_words is None else torch.empty_like(doc)
@@ -164,7 +164,7 @@ def decode_pair(docs_words, freqs_words, dfld, ffld, W, WL, T, num_docs):
         doc.data_ptr(), ptr(freq),
         torch.cuda.current_stream(docs_words.device).cuda_stream,
     )
-    kernels.check(rc, "pair_decode launch")
+    kernels.check(lib, rc, "pair_decode launch")
     decode_pair.launches += 1
     return doc, freq
 

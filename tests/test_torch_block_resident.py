@@ -1,0 +1,214 @@
+"""ds2i_torch.engine.ResidentEngine in split mode (device="cpu", the plain
+PyTorch path) over block_optpfor and block_interpolative indexes, against
+the JAX ResidentEngine and the numpy oracle: tables, statics, plan arrays
+and the norm cache exactly, decoded lists and boolean counts exactly,
+top-10 BM25 scores within rtol 1e-3 (the f16 download rounds at 2^-11,
+and XLA's f32 divide is not IEEE)."""
+
+import numpy as np
+import pytest
+import torch
+
+from ds2i_tpu import GlobalParameters
+from ds2i_tpu.engine import ResidentEngine as JaxResidentEngine
+from ds2i_tpu.index.hybrid import rebuild_mixed
+from ds2i_tpu.index.types import make_index_type
+from ds2i_tpu.io import BinaryFreqCollection, generate_collection, read_sizes
+from ds2i_tpu.queries import (
+    WandData, and_query, or_query, ranked_and_query, ranked_or_query, read_queries,
+)
+
+from ds2i_torch.engine import ResidentEngine, resident_state_from_arrays
+from ds2i_torch.engine.tiles import F_NVALS
+from ds2i_torch.ops.block_decode import block_stream_torch
+
+from test_torch_resident import _assert_topk_close, _plan_arrays
+
+NQ = 24  # queries per check
+BLOCK_TYPES = ["block_optpfor", "block_interpolative"]
+
+
+@pytest.fixture(scope="module")
+def coll(tmp_path_factory):
+    base = str(tmp_path_factory.mktemp("coll") / "c")
+    generate_collection(base, num_docs=1500, num_terms=4000, postings_target=80_000,
+                        num_queries=80, max_query_len=3)
+    return base
+
+
+def _build(coll, name):
+    c = BinaryFreqCollection(coll)
+    b = make_index_type(name).builder(c.num_docs, GlobalParameters())
+    for docs, freqs in c:
+        b.add_posting_list(len(docs), docs, freqs, int(np.asarray(freqs).sum()))
+    return b.build()
+
+
+@pytest.fixture(scope="module")
+def setup(coll):
+    """name -> (index, wdata, port engine, JAX engine)."""
+    c = BinaryFreqCollection(coll)
+    wdata = WandData.build(read_sizes(coll), c)
+    out = {}
+    for name in BLOCK_TYPES:
+        index = _build(coll, name)
+        out[name] = (index, wdata, ResidentEngine(index, wdata, device="cpu"),
+                     JaxResidentEngine(index, wdata))
+    return out
+
+
+@pytest.fixture(scope="module")
+def queries(coll):
+    return read_queries(coll + ".queries")[:NQ]
+
+
+@pytest.mark.parametrize("name", BLOCK_TYPES)
+def test_tables_and_words_match_jax(setup, name):
+    """Per-stream statics (exception groups remapped to "optp"), gids, the
+    field tables with BF_EX_BASE filled, and the one resident word stream
+    (index bytes + patch pairs), uploaded once."""
+    _, _, port, ref = setup[name]
+    assert port.split and ref.split
+    assert port.group_statics_d == ref.group_statics_d
+    assert port.group_statics_f == ref.group_statics_f
+    np.testing.assert_array_equal(port.tile_gid_d, ref.tile_gid_d)
+    np.testing.assert_array_equal(port.tile_gid_f, ref.tile_gid_f)
+    s = port.state
+    np.testing.assert_array_equal(s.tiles_docs.numpy(), np.asarray(ref.tiles_docs))
+    np.testing.assert_array_equal(s.tiles_freqs.numpy(), np.asarray(ref.tiles_freqs))
+    np.testing.assert_array_equal(s.docs_words.numpy().view(np.uint32), np.asarray(ref.docs_words))
+    assert s.freqs_words is s.docs_words
+    assert s.nbytes() == sum(t.numel() * t.element_size() for t in (
+        s.docs_words, s.tiles_docs, s.tiles_freqs, s.norm_den))
+    if name == "block_optpfor":
+        assert any(st[0] == "optp" for st in port.group_statics_d + port.group_statics_f)
+
+
+@pytest.mark.parametrize("name", BLOCK_TYPES)
+def test_every_tile_decodes_as_the_host(setup, name):
+    """block_stream_torch over every group of both streams equals
+    index.decode_list on every list, and writes the pads."""
+    index, _, port, _ = setup[name]
+    s, nt = port.state, port.pad_tile
+    nvals = port.tiles.docs[:, F_NVALS]
+    decoded = {}
+    for stream, gid, stats, table in (
+        ("docs", port.tile_gid_d, port.group_statics_d, s.tiles_docs),
+        ("freqs", port.tile_gid_f, port.group_statics_f, s.tiles_freqs),
+    ):
+        rows = np.zeros((nt, 128), np.int64)
+        groups, gids, _, _, _ = port._order_groups(np.arange(nt), gid, stats)
+        for off, R, st in groups:
+            ids = gids[off:off + R]
+            out = block_stream_torch(s.docs_words, table[torch.from_numpy(ids.astype(np.int64))],
+                                     st, port.num_docs, stream == "docs").numpy()
+            assert out.shape == (R, st[-1]) and out.dtype == np.int32
+            real = ids < nt
+            j = np.arange(st[-1])[None, :]
+            pads = j >= np.append(nvals, 0)[ids][:, None]
+            assert np.all(out[pads] == (port.num_docs if stream == "docs" else 0))
+            rows[ids[real], :st[-1]] = out[real]
+        decoded[stream] = rows
+    for li in range(index.size()):
+        tiles = range(int(port.list_tile_start[li]), int(port.list_tile_start[li + 1]))
+        hd, hf = index.decode_list(li)
+        np.testing.assert_array_equal(
+            np.concatenate([decoded["docs"][t, :nvals[t]] for t in tiles]), hd, err_msg=f"list {li}")
+        np.testing.assert_array_equal(
+            np.concatenate([decoded["freqs"][t, :nvals[t]] for t in tiles]), hf, err_msg=f"list {li}")
+
+
+@pytest.mark.parametrize("ops", [("and",), ("or",), ("counts",)])
+@pytest.mark.parametrize("name", BLOCK_TYPES)
+def test_plan_arrays_match_jax(coll, setup, name, ops):
+    """Small part budgets force several parts; every plan array equals the
+    JAX engine's, gtile_f, blkperm and groups_f included."""
+    index, wdata, _, _ = setup[name]
+    qs = read_queries(coll + ".queries")
+    kw = dict(max_part_slots=1 << 13, max_part_queries=32)
+    port = ResidentEngine(index, wdata, device="cpu", **kw)
+    ref = JaxResidentEngine(index, wdata, **kw)
+    ranked = ops != ("counts",)
+    got = port.prepare(qs, k=10, ops=ops, ranked=ranked)
+    exp = ref.prepare(qs, k=10, ops=ops, ranked=ranked)
+    assert len(got["plans"]) > 1
+    assert all(p["groups_f"] for p in got["plans"])
+    assert _plan_arrays(got) == _plan_arrays(exp)
+
+
+@pytest.mark.parametrize("name", BLOCK_TYPES)
+def test_norm_cache_matches_jax(setup, name):
+    _, _, port, ref = setup[name]
+    port._ensure_norm_cache()
+    ref._ensure_norm_cache()
+    np.testing.assert_array_equal(port.state.den_blocks.numpy(), np.asarray(ref.den_blocks))
+    np.testing.assert_array_equal(port.state.tile_gblk0.numpy(), np.asarray(ref.tile_gblk0))
+
+
+@pytest.mark.parametrize("name", BLOCK_TYPES)
+def test_counts_match_jax_and_oracle(setup, queries, name):
+    index, _, port, ref = setup[name]
+    got_and, got_or = port.and_counts(queries), port.or_counts(queries)
+    np.testing.assert_array_equal(got_and, ref.and_counts(queries))
+    np.testing.assert_array_equal(got_or, ref.or_counts(queries))
+    for i, terms in enumerate(queries):
+        assert got_and[i] == and_query(index, terms), f"AND q={terms}"
+        assert got_or[i] == or_query(index, terms), f"OR q={terms}"
+
+
+@pytest.mark.parametrize("name", BLOCK_TYPES)
+def test_ranked_match_jax_and_oracle(setup, queries, name):
+    index, wdata, port, ref = setup[name]
+    got_and, got_or = port.ranked_and(queries, k=10), port.ranked_or(queries, k=10)
+    _assert_topk_close(got_and, ref.ranked_and(queries, k=10), queries)
+    _assert_topk_close(got_or, ref.ranked_or(queries, k=10), queries)
+    _assert_topk_close(got_and, [ranked_and_query(index, wdata, q, k=10) for q in queries], queries)
+    _assert_topk_close(got_or, [ranked_or_query(index, wdata, q, k=10) for q in queries], queries)
+
+
+def test_from_state_over_block_index(setup, queries):
+    """An engine over the JAX engine's resident arrays (its one word
+    stream given for both fields, norm cache included) serves the same
+    results."""
+    index, _, port, ref = setup["block_optpfor"]
+    ref._ensure_norm_cache()
+    words = np.asarray(ref.docs_words)
+    state = resident_state_from_arrays(
+        words, words, np.asarray(ref.tiles_docs), np.asarray(ref.tiles_freqs),
+        np.asarray(ref.norm_den), den_blocks=np.asarray(ref.den_blocks),
+        tile_gblk0=np.asarray(ref.tile_gblk0), device="cpu",
+    )
+    assert state.freqs_words is state.docs_words
+    eng = ResidentEngine.from_state(index, state)
+    assert eng.ranked_and(queries) == port.ranked_and(queries)
+    assert eng.ranked_or(queries) == port.ranked_or(queries)
+    np.testing.assert_array_equal(eng.or_counts(queries), port.or_counts(queries))
+    with pytest.raises(ValueError, match="does not belong"):
+        ResidentEngine.from_state(setup["block_interpolative"][0], state)
+
+
+@pytest.mark.parametrize("name", ["block_varint", "block_qmx", "block_mixed"])
+def test_other_block_codecs_raise(coll, name):
+    c = BinaryFreqCollection(coll)
+    b = make_index_type("block_optpfor" if name == "block_mixed" else name).builder(
+        c.num_docs, GlobalParameters())
+    for i, (docs, freqs) in enumerate(c):
+        b.add_posting_list(len(docs), docs, freqs, int(np.asarray(freqs).sum()))
+        if i == 50:
+            break
+    index = b.build()
+    if name == "block_mixed":
+        # mixed indexes come only from a transformation (per-block codecs)
+        nb = sum(len(index.get_blocks(li)) for li in range(index.size()))
+        index = rebuild_mixed(index, np.zeros(2 * nb, np.uint8), np.full(2 * nb, 10, np.uint8))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        ResidentEngine(index, device="cpu")
+
+
+def test_no_card_is_an_error(setup, monkeypatch):
+    """device=None means CUDA: without a card the engine raises, never
+    serving from the CPU in its place."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    index, wdata, _, _ = setup["block_optpfor"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ResidentEngine(index, wdata)

@@ -1,5 +1,6 @@
-"""The port on the card: the CUDA pair decode against its plain PyTorch
-version, and ResidentEngine on CUDA against the same engine on the CPU.
+"""The port on the card: each CUDA kernel (pair decode, OptPFor and
+interpolative block decode) against its plain PyTorch version, and
+ResidentEngine on CUDA against the same engine on the CPU.
 
 Every test here is marked `cuda` and skips where torch.cuda.is_available()
 is False. The card's machine has no jax, so run them there without the
@@ -17,7 +18,8 @@ from ds2i_torch.host import (
     BinaryFreqCollection, GlobalParameters, WandData, generate_collection,
     make_index_type, read_queries, read_sizes,
 )
-from ds2i_torch.ops import pair_decode
+from ds2i_torch.ops import block_decode, pair_decode
+from ds2i_torch.ops.block_decode import block_stream_torch, interp_decode, optpfor_decode
 from ds2i_torch.ops.pair_decode import decode_pair, decode_pair_torch
 
 pytestmark = pytest.mark.cuda
@@ -80,7 +82,43 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda, coll):
         decode_pair(s.docs_words, s.freqs_words, df, ff, 4, 4, 256, eng.num_docs)
 
 
-@pytest.mark.parametrize("name", ["ef", "opt"])
+@pytest.mark.parametrize("name", ["block_optpfor", "block_interpolative"])
+def test_block_kernels_match_plain_on_every_group(cuda, coll, name):
+    """Both streams of every split-mode group through its kernel and
+    through block_stream_torch on the card, bit for bit; one counted
+    launch per call, on the kernel the statics name."""
+    eng = ResidentEngine(build(coll, name), device=cuda)
+    s = eng.state
+    for gid, stats, table, is_docs in (
+        (eng.tile_gid_d, eng.group_statics_d, s.tiles_docs, True),
+        (eng.tile_gid_f, eng.group_statics_f, s.tiles_freqs, False),
+    ):
+        groups, gids, _, _, _ = eng._order_groups(np.arange(eng.pad_tile), gid, stats)
+        ids_all = torch.from_numpy(gids.astype(np.int64)).to(cuda)
+        for off, R, st in groups:
+            fld = table[ids_all[off:off + R]]
+            wrapper = interp_decode if st[0] == "interp" else optpfor_decode
+            before = wrapper.launches
+            got = block_decode.block_stream(s.docs_words, fld, st, eng.num_docs, is_docs)
+            torch.cuda.synchronize()
+            assert wrapper.launches == before + 1
+            ref = block_stream_torch(s.docs_words, fld, st, eng.num_docs, is_docs)
+            torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+def test_block_wrappers_reject_what_the_kernels_do_not_take(cuda, coll):
+    eng = ResidentEngine(build(coll, "block_optpfor"), device=cuda)
+    s = eng.state
+    fld = s.tiles_docs[:8]
+    with pytest.raises(ValueError, match="int32"):
+        optpfor_decode(s.docs_words.long(), fld, ("optp", 5, 4, 128), eng.num_docs, True)
+    with pytest.raises(ValueError, match="E="):
+        optpfor_decode(s.docs_words, fld, ("opt", 5, 4, 128), eng.num_docs, True)
+    with pytest.raises(ValueError, match="interp_decode takes"):
+        interp_decode(s.docs_words, fld, ("interp", 5, 32), eng.num_docs, True)
+
+
+@pytest.mark.parametrize("name", ["ef", "opt", "block_optpfor", "block_interpolative"])
 def test_engine_on_cuda_equals_engine_on_cpu(cuda, coll, name):
     """Same decode bits, IEEE f32 add and divide on both devices, the same
     stable sort and shifted-add order: the norm cache, counts and top-10

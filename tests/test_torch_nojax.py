@@ -1,6 +1,7 @@
 """ds2i_torch runs where jax is absent: in a fresh interpreter whose
 import system refuses every jax module, import the port, serve a CPU
-ranked_and against the numpy oracle, and check no jax module loaded."""
+ranked_and over an `opt` index (pair mode) and a `block_optpfor` index
+(split mode) against the numpy oracle, and check no jax module loaded."""
 
 import os
 import subprocess
@@ -25,7 +26,9 @@ _SCRIPT = textwrap.dedent("""
     import ds2i_torch
     import ds2i_torch.engine
     import ds2i_torch.host
+    import ds2i_torch.engine.block_tiles
     import ds2i_torch.kernels
+    import ds2i_torch.ops.block_decode
     import ds2i_torch.ops.pair_decode
     from ds2i_torch.engine import ResidentEngine
     from ds2i_torch.host import (
@@ -37,18 +40,21 @@ _SCRIPT = textwrap.dedent("""
     generate_collection(base, num_docs=400, num_terms=600, postings_target=8_000,
                         num_queries=12, max_query_len=3)
     c = BinaryFreqCollection(base)
-    b = make_index_type("opt").builder(c.num_docs, GlobalParameters())
-    for docs, freqs in c:
-        b.add_posting_list(len(docs), docs, freqs, int(np.asarray(freqs).sum()))
-    index = b.build()
     wdata = WandData.build(read_sizes(base), c)
     queries = read_queries(base + ".queries")
-    got = ResidentEngine(index, wdata, device="cpu").ranked_and(queries, k=10)
-    for g, q in zip(got, queries):
-        e = ranked_and_query(index, wdata, q, k=10)
-        assert len(g) == len(e), q
-        if e:
-            np.testing.assert_allclose(g, e, rtol=1e-3)
+    for name in ("opt", "block_optpfor"):
+        b = make_index_type(name).builder(c.num_docs, GlobalParameters())
+        for docs, freqs in c:
+            b.add_posting_list(len(docs), docs, freqs, int(np.asarray(freqs).sum()))
+        index = b.build()
+        eng = ResidentEngine(index, wdata, device="cpu")
+        assert eng.split == (name == "block_optpfor")
+        got = eng.ranked_and(queries, k=10)
+        for g, q in zip(got, queries):
+            e = ranked_and_query(index, wdata, q, k=10)
+            assert len(g) == len(e), (name, q)
+            if e:
+                np.testing.assert_allclose(g, e, rtol=1e-3)
     loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
     assert not loaded, loaded
     print("NOJAX_OK", len(queries))

@@ -158,7 +158,7 @@ def test_unported_paths_raise(coll, setup, queries):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.prepare(queries, ops=("and",), prune=True)
     c = BinaryFreqCollection(coll)
-    b = make_index_type("block_optpfor").builder(c.num_docs, GlobalParameters())
+    b = make_index_type("block_varint").builder(c.num_docs, GlobalParameters())
     for i, (docs, freqs) in enumerate(c):
         b.add_posting_list(len(docs), docs, freqs, int(np.asarray(freqs).sum()))
         if i == 50:
