@@ -20,12 +20,16 @@ mode (bench.py's default index type).
   5. slice phase: ResidentEngine(device="cuda"), prepare the full query
      log, 1 warmup + 9 timed passes of execute; us/query and the
      kernels' launch counts over the run (every count set to 0 just
-     before it)
+     before it); then the decode stage of one pass alone, host clock
   6. oracle phase: the first 300 queries against the numpy oracle
      (counts exact, top-10 scores within rtol 1e-3)
   block_optpfor path (split mode, kernels optpfor_decode and
-  interp_decode): the same three phases, the kernel phase per kernel
-  over every group of both streams
+  interp_decode, one launch per kernel and stream of a part): the kernel
+  phase per kernel over every tile (each launch mode against its plain
+  version, the whole all-tiles part against split_decode_part_torch),
+  the slice phase (launches a pass: at most 2 a part per kernel), the
+  part phase (every part of the slice's plan against the plain version;
+  each kernel's launches of one pass timed) and the oracle phase
   7. block_interpolative: a smaller oracle-only run (100 queries)
   8. the kernels' JSON line, then {"ok": true, "device": {...}} last
 
@@ -56,6 +60,9 @@ ORACLE_QUERIES = 300
 INTERP_ORACLE_QUERIES = 100
 RTOL = 1e-3  # the reference's ranked-test tolerance (test_ranked_queries.cpp:52)
 PASSES = 9
+# the least time for a kernel's work: the bytes it must move over the H100
+# SXM's 3.35 TB/s of device memory (NVIDIA's H100 SXM data sheet)
+HBM_BYTES_PER_S = 3.35e12
 
 
 def log(msg):
@@ -157,6 +164,45 @@ def fmt_ms(x):
     return "not measured" if x is None else f"{x:.4f} ms"
 
 
+def bound(nbytes):
+    """(bound_ms, bound_by) of work that must move nbytes. No least count
+    of the integer operations these decodes need is derived (a count
+    taken from a kernel's own source is that kernel's cost, not the
+    function's), so the bound is by bytes alone."""
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def pair_bytes(eng, groups, gids):
+    """The bytes the pair decode of rows gids (in groups) must move: per
+    real row and stream, the 10 field words the decode reads (all but
+    F_PREV_CUM for docs, all but F_NVALS for freqs), the high-bits window
+    words its F_WIN_LEN bits span (EF, strict EF and ranked-bitvector
+    segments) and the words its n_vals * l low bits span (EF and strict
+    EF); per pad row its n_vals; each output slot written once (T int32
+    of each stream for every row)."""
+    from ds2i_torch.engine.tiles import (
+        F_KIND, F_LB_BITOFF, F_LOWER_BITS, F_NVALS, F_WIN_BITOFF, F_WIN_LEN,
+    )
+    from ds2i_torch.ops.segments import SEG_EF, SEG_EF_STRICT, SEG_RB
+
+    nt = eng.pad_tile
+    nbytes = 0
+    for off, R, st in groups:
+        ids = gids[off:off + R].astype(np.int64)
+        r = ids[ids < nt]
+        nbytes += 4 * (R - len(r)) + 2 * 4 * R * st[3]
+        n = eng.tiles.docs[r, F_NVALS].astype(np.int64)
+        for table in (eng.tiles.docs, eng.tiles.freqs):
+            f = table[r].astype(np.int64)
+            high = np.isin(f[:, F_KIND], (SEG_EF, SEG_EF_STRICT, SEG_RB)) & (f[:, F_WIN_LEN] > 0)
+            hw = np.where(high, (f[:, F_WIN_BITOFF] + f[:, F_WIN_LEN] + 31) // 32, 0)
+            lbits = n * f[:, F_LOWER_BITS]
+            low = np.isin(f[:, F_KIND], (SEG_EF, SEG_EF_STRICT)) & (lbits > 0)
+            lw = np.where(low, (f[:, F_LB_BITOFF] + lbits + 31) // 32, 0)
+            nbytes += 4 * (10 * len(r) + int(hw.sum()) + int(lw.sum()))
+    return nbytes
+
+
 def kernel_phase(eng, index):
     """Every tile through the CUDA kernel and through decode_pair_torch on
     the card: bit equality, times, and 200 lists against the host
@@ -197,6 +243,9 @@ def kernel_phase(eng, index):
     dev_plain_ms = device_only_ms(lambda: run(decode_pair_torch))
     shapes = ", ".join(f"{st[1:]}x{R}" for _, R, st in groups)
     log(f"kernel phase: {nt} tiles in {len(groups)} groups [(W, WL, T) x rows: {shapes}]")
+    nbytes = pair_bytes(eng, groups, gids)
+    bound_ms, bound_by = bound(nbytes)
+    log(f"kernel phase: bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes)")
     log(f"kernel phase: CUDA == plain bit for bit, both streams and docs only (max |err| "
         f"{max_err}); all tiles, both streams: kernel {ms:.4f} ms, plain PyTorch "
         f"{plain_ms:.4f} ms (median of 5)")
@@ -233,62 +282,217 @@ def kernel_phase(eng, index):
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call decodes Elias-Fano
     }
 
 
+def _interp_order(n):
+    """(h, lo, hi) of the n - 1 codes of an n-value interpolative row: code
+    h has bounds cum[lo - 1] (0 for lo = 0) and cum[hi]
+    (codecs/interpolative.py: BitWriter32.write_interpolative)."""
+    out, stack = [], [(0, n - 1)]
+    while stack:
+        lo, hi = stack.pop()
+        if hi > lo:
+            h = lo + (hi - lo) // 2
+            out.append((h, lo, hi))
+            stack += [(h + 1, hi), (lo, h)]
+    return np.array(out, dtype=np.int64).reshape(-1, 3).T
+
+
+def interp_code_words(eng, part, docs32, freq32):
+    """{True: docs, False: freqs}: each tile's interpolative code span in
+    words, per stream (0 for other tiles and for rows of at most one value):
+    ceil((BF_BOFF + code bits) / 32), the code bits counted from the
+    decoded values as the encoder writes them (a value x in [0, u) takes
+    b = msb(u) bits, b + 1 where x >= 2^(b+1) - u). Each row's count must
+    fit the W words of its group's window."""
+    from ds2i_torch.engine.block_tiles import BF_BOFF
+    from ds2i_torch.engine.tiles import F_BASE, F_NVALS
+
+    nvals = eng.tiles.docs[:, F_NVALS].astype(np.int64)
+    out = {}
+    for fields, gid, statics, vals, tblk, is_docs in (
+            (eng.tiles.docs, eng.tile_gid_d, eng.group_statics_d, docs32, part.tblk, True),
+            (eng.tiles.freqs, eng.tile_gid_f, eng.group_statics_f, freq32, part.tblk_f, False)):
+        win = np.array([st[1] if st[0] == "interp" else 0 for st in statics], np.int64)[gid]
+        words = np.zeros(eng.pad_tile + 1, np.int64)
+        flat = vals.reshape(-1).astype(np.int64)
+        for n in np.unique(nvals[win > 0]):
+            if n <= 1:
+                continue
+            rows = np.flatnonzero((win > 0) & (nvals == n))
+            v = flat[tblk[rows, None] * 32 + np.arange(n)]
+            if is_docs:
+                cum = v - fields[rows, F_BASE, None].astype(np.int64) - np.arange(n)
+            else:
+                cum = np.cumsum(v - 1, axis=1)
+            cz = np.concatenate([np.zeros((len(rows), 1), np.int64), cum], axis=1)
+            h, lo, hi = _interp_order(int(n))
+            low, high, val = cz[:, lo], cz[:, hi + 1], cz[:, h + 1]
+            u = high - low + 1
+            b = np.frexp(u.astype(np.float64))[1].astype(np.int64) - 1
+            bits = (b + (val - low >= (1 << (b + 1)) - u)).sum(axis=1)
+            span = (fields[rows, BF_BOFF].astype(np.int64) + bits + 31) // 32
+            words[rows] = np.where(bits > 0, span, 0)
+        if np.any(words[:-1] > win):
+            raise AssertionError("an interpolative row's code spans more words than its window")
+        out[is_docs] = words
+    return out
+
+
+def block_launch_bytes(eng, launch, gtile_host, mode, code_words):
+    """The bytes one launch of a block kernel must move on this run's data,
+    each input read once and each output written once: every row's map
+    entry; a pad row's n_vals; a real row's fields the decode needs (K1:
+    BF_W0, BF_BOFF, F_NVALS, with patches BF_NEX and BF_EX_BASE; K2:
+    BF_W0, BF_BOFF, F_NVALS and the sum; docs also F_BASE), its code words
+    (K1: the 128 b-bit slots from BF_BOFF, and its min(n_ex, E) patch
+    pairs; K2: code_words) and, for BM25 weights, its tile_gblk0 entry and
+    the blkperm entry, freq and den of each valid slot's block and slot;
+    each output block written (out, and w for weights)."""
+    from ds2i_torch.engine.block_tiles import BF_BOFF, BF_NEX
+    from ds2i_torch.engine.tiles import F_NVALS
+
+    is_docs = mode != "freqs"
+    fields = (eng.tiles.docs if is_docs else eng.tiles.freqs).astype(np.int64)
+    nvals = eng.tiles.docs[:, F_NVALS].astype(np.int64)
+    nt = eng.pad_tile
+    nbytes = 0
+    for p1, p2, T, row0, n, _ in launch.host.tolist():
+        ids = gtile_host[row0:row0 + n].astype(np.int64)
+        r = ids[ids < nt]
+        outputs = 2 if mode in ("presence", "bm25") else 1
+        nbytes += 8 * n + 4 * (n - len(r)) + n * max(T // 32, 1) * 128 * outputs
+        if mode == "bm25":
+            nbytes += 8 * len(r) + 8 * int(((nvals[r] + 31) // 32).sum()) + 8 * int(nvals[r].sum())
+        if launch.kernel == "optpfor":
+            nf = 3 + (2 if p2 else 0) + (1 if is_docs else 0)
+            bs = min(p1, 32)
+            words = (fields[r, BF_BOFF] + 128 * bs + 31) // 32 if bs else np.zeros(len(r), np.int64)
+            npatch = np.minimum(fields[r, BF_NEX], p2) if p2 else np.zeros(len(r), np.int64)
+            nbytes += 4 * nf * len(r) + 4 * int(words.sum()) + 8 * int(npatch.sum())
+        else:
+            nf = 4 + (1 if is_docs else 0)
+            nbytes += 4 * nf * len(r) + 4 * int(code_words[is_docs][r].sum())
+    return nbytes
+
+
 def block_kernel_phase(eng, index):
-    """Every tile of the split-mode index, both streams, through each
-    block kernel and through block_stream_torch on the card: bit
-    equality, both times per kernel, and 200 lists against the host
-    decoder. Returns the two kernels' JSON entries (launches filled
-    later)."""
+    """Every tile of the split-mode index as one part
+    (ResidentEngine.all_tiles_part): the whole part through
+    split_decode_part against split_decode_part_torch, and 200 lists
+    against the host decoder; then each block kernel's one launch per
+    stream, in each mode the engine uses (freqs; docs with BM25 weights;
+    docs alone, the norm cache's), through the wrapper and through
+    decode_launch_torch on the card: bit equality, both times per kernel
+    (the freqs and the BM25 docs launch, as a ranked part runs them), the
+    bound. Returns the two kernels' JSON entries (launches filled later)
+    and each tile's interpolative code words (interp_code_words)."""
     import torch
 
     from ds2i_torch.engine.tiles import F_NVALS
-    from ds2i_torch.ops.block_decode import block_stream_torch, interp_decode, optpfor_decode
+    from ds2i_torch.ops.block_decode import (
+        KERNELS, WRAPPERS, decode_launch_torch, split_decode_part, split_decode_part_torch,
+    )
 
-    s, dev, nt = eng.state, eng.device, eng.pad_tile
-    calls = {optpfor_decode: [], interp_decode: []}  # wrapper -> [(fld, st, is_docs, ids)]
-    for gid, stats, table, is_docs in (
-        (eng.tile_gid_d, eng.group_statics_d, s.tiles_docs, True),
-        (eng.tile_gid_f, eng.group_statics_f, s.tiles_freqs, False),
-    ):
-        groups, gids, _, _, _ = eng._order_groups(np.arange(nt), gid, stats)
-        ids_all = torch.from_numpy(gids.astype(np.int64)).to(dev)
-        for off, R, st in groups:
-            wrapper = interp_decode if st[0] == "interp" else optpfor_decode
-            calls[wrapper].append((table[ids_all[off:off + R]], st, is_docs, gids[off:off + R]))
+    eng._ensure_norm_cache()
+    s, dev, nd = eng.state, eng.device, eng.num_docs
+    part = eng.all_tiles_part()
+    gt, gf, bp, lay = part[:4]
+    host = {True: gt.cpu().numpy(), False: gf.cpu().numpy()}
 
-    def run(fn, args):
-        return [fn(s.docs_words, fld, st, eng.num_docs, is_docs) for fld, st, is_docs, _ in args]
+    # the whole all-tiles part, ranked, as the engine runs it
+    rows_p = 1 << max(lay.nb_d - 1, 0).bit_length()
+    args = (s.docs_words, s.tiles_docs, s.tiles_freqs, gt, gf, bp, lay, nd, "bm25",
+            s.den_blocks, s.tile_gblk0, rows_p)
+    (gd, gw), (pd, pw) = split_decode_part(*args), split_decode_part_torch(*args)
+    freq = torch.empty((lay.nb_f, 32), dtype=torch.int32, device=dev)
+    for kernel in KERNELS:
+        WRAPPERS[kernel](lay.launch(kernel, False, dev), s.docs_words, s.tiles_freqs, gf,
+                         "freqs", nd, freq)
+    torch.cuda.synchronize()
+    if not (torch.equal(gd, pd) and torch.equal(gw, pw)):
+        raise AssertionError("split_decode_part differs from split_decode_part_torch over every tile")
+    log(f"block kernel phase: split_decode_part over every tile ({lay.nb_d} docs blocks, "
+        f"{lay.nb_f} freqs blocks) == split_decode_part_torch, docs32 and w32 bit for bit")
 
-    decoded = {True: np.zeros((nt, 128), np.int64), False: np.zeros((nt, 128), np.int64)}
+    # 200 random lists against the host decoder
+    docs_h = gd.cpu().numpy()
+    freq_h = freq.cpu().numpy()
+    nvals = eng.tiles.docs[:, F_NVALS]
+    rng = np.random.RandomState(0)
+    lists = rng.choice(np.flatnonzero(eng.list_n > 0), size=min(200, int(np.sum(eng.list_n > 0))),
+                       replace=False)
+    for li in lists:
+        tiles = range(int(eng.list_tile_start[li]), int(eng.list_tile_start[li + 1]))
+        docs = np.concatenate([docs_h[part.tblk[t]:][:4].reshape(-1)[:nvals[t]] for t in tiles])
+        freqs = np.concatenate([freq_h[part.tblk_f[t]:][:4].reshape(-1)[:nvals[t]]
+                                for t in tiles])
+        hd, hf = index.decode_list(int(li))
+        if not (np.array_equal(docs, hd) and np.array_equal(freqs, hf)):
+            raise AssertionError(f"list {li}: CUDA block decode differs from index.decode_list")
+    log(f"block kernel phase: {len(lists)} random lists equal index.decode_list")
+    code_words = interp_code_words(eng, part, docs_h, freq_h)
+
+    docs_buf = torch.empty((lay.nb_d, 32), dtype=torch.int32, device=dev)
+    w_buf = torch.empty((lay.nb_d, 32), dtype=torch.float32, device=dev)
+
+    def launch_args(kernel, mode):
+        is_docs = mode != "freqs"
+        launch = lay.launch(kernel, is_docs, dev)
+        table, gtile = (s.tiles_docs, gt) if is_docs else (s.tiles_freqs, gf)
+        return launch, table, gtile
+
     entries = []
-    for wrapper, args in calls.items():
-        got, ref = run(wrapper, args), run(block_stream_torch, args)
-        torch.cuda.synchronize()
-        max_err = 0
-        for a, b, (_, st, is_docs, ids) in zip(got, ref, args):
-            if a.shape != b.shape or a.dtype != b.dtype:
-                raise AssertionError(f"{wrapper.__name__} output {a.shape} {a.dtype} != plain "
-                                     f"{b.shape} {b.dtype}")
-            max_err = max(max_err, int((a.long() - b.long()).abs().max()))
-            real = ids < nt
-            decoded[is_docs][ids[real], :st[-1]] = a.cpu().numpy()[real]
+    for kernel in KERNELS:
+        wrapper = WRAPPERS[kernel]
+        if not lay.launch(kernel, True, dev).n_cta:
+            continue
+        max_err = 0.0
+        for mode in ("freqs", "bm25", "docs"):
+            launch, table, gtile = launch_args(kernel, mode)
+            nb = lay.nb_d if mode != "freqs" else lay.nb_f
+            res = []
+            for fn in (wrapper, decode_launch_torch):
+                out = torch.full((nb, 32), -7, dtype=torch.int32, device=dev)
+                w = torch.full((nb, 32), -7.0, device=dev) if mode == "bm25" else None
+                fn(launch, s.docs_words, table, gtile, mode, nd, out, w, freq, bp,
+                   s.den_blocks, s.tile_gblk0)
+                res.append((out, w))
+            torch.cuda.synchronize()
+            (go, gw), (po, pw) = res
+            max_err = max(max_err, float((go.long() - po.long()).abs().max()))
+            if gw is not None:
+                max_err = max(max_err, float((gw - pw).abs().max()))
         if max_err != 0:
-            raise AssertionError(f"{wrapper.__name__} differs from block_stream_torch: "
+            raise AssertionError(f"{wrapper.__name__} differs from decode_launch_torch: "
                                  f"max |err| {max_err}")
-        ms = cuda_ms(lambda: run(wrapper, args))
-        plain_ms = cuda_ms(lambda: run(block_stream_torch, args))
-        dev_ms = device_only_ms(lambda: run(wrapper, args))
-        dev_plain_ms = device_only_ms(lambda: run(block_stream_torch, args))
-        rows = sum(int((ids < nt).sum()) for _, _, _, ids in args)
-        shapes = ", ".join(f"{'d' if d else 'f'}{st[1:]}x{fld.shape[0]}" for fld, st, d, _ in args)
-        log(f"block kernel phase: {wrapper.__name__}: {rows} tile rows of both streams in "
-            f"{len(args)} groups [stream(statics) x rows: {shapes}]")
-        log(f"block kernel phase: {wrapper.__name__}: CUDA == plain bit for bit (max |err| "
-            f"{max_err}); kernel {ms:.4f} ms, plain PyTorch {plain_ms:.4f} ms (median of 5); "
-            f"device work alone: kernel {fmt_ms(dev_ms)}, plain PyTorch {fmt_ms(dev_plain_ms)}")
+
+        def run(fn):
+            for mode in ("freqs", "bm25"):
+                launch, table, gtile = launch_args(kernel, mode)
+                out = freq if mode == "freqs" else docs_buf
+                fn(launch, s.docs_words, table, gtile, mode, nd, out,
+                   None if mode == "freqs" else w_buf, freq, bp, s.den_blocks, s.tile_gblk0)
+
+        ms = cuda_ms(lambda: run(wrapper))
+        plain_ms = cuda_ms(lambda: run(decode_launch_torch))
+        dev_ms = device_only_ms(lambda: run(wrapper))
+        nbytes = sum(block_launch_bytes(eng, launch_args(kernel, mode)[0], host[mode != "freqs"],
+                                        mode, code_words) for mode in ("freqs", "bm25"))
+        bound_ms, bound_by = bound(nbytes)
+        rows = sum(int(lay.launch(kernel, d, dev).host[:, 4].sum()) for d in (True, False))
+        ctas = [lay.launch(kernel, d, dev).n_cta for d in (True, False)]
+        log(f"block kernel phase: {wrapper.__name__}: one launch per stream over every tile "
+            f"({rows} rows of both streams, {ctas[0]} + {ctas[1]} CTAs), modes freqs, docs+BM25 "
+            f"weights and docs alone: CUDA == plain bit for bit (max |err| {max_err})")
+        log(f"block kernel phase: {wrapper.__name__}: freqs + BM25 docs launches, every tile: "
+            f"kernel {ms:.4f} ms through the wrapper, {fmt_ms(dev_ms)} alone, plain PyTorch "
+            f"{plain_ms:.4f} ms (median of 5); bound {bound_ms:.4f} ms by {bound_by} "
+            f"({nbytes} bytes)")
         name = wrapper.__name__
         entries.append({
             "name": name,
@@ -300,27 +504,79 @@ def block_kernel_phase(eng, index):
             "max_abs_err": max_err,
             "ms": ms,
             "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,  # no single PyTorch call decodes OptPFor or interpolative
         })
+    return entries, code_words
 
-    nvals = eng.tiles.docs[:, F_NVALS]
-    rng = np.random.RandomState(0)
-    lists = rng.choice(np.flatnonzero(eng.list_n > 0), size=min(200, int(np.sum(eng.list_n > 0))),
-                       replace=False)
-    for li in lists:
-        tiles = range(int(eng.list_tile_start[li]), int(eng.list_tile_start[li + 1]))
-        docs = np.concatenate([decoded[True][t, :nvals[t]] for t in tiles])
-        freqs = np.concatenate([decoded[False][t, :nvals[t]] for t in tiles])
-        hd, hf = index.decode_list(int(li))
-        if not (np.array_equal(docs, hd) and np.array_equal(freqs, hf)):
-            raise AssertionError(f"list {li}: CUDA block decode differs from index.decode_list")
-    log(f"block kernel phase: {len(lists)} random lists equal index.decode_list")
-    return entries
+
+def part_kernel_phase(eng, plan, code_words):
+    """Over every part of the slice's plan: split_decode_part on the card
+    against split_decode_part_torch, bit for bit; then each block
+    kernel's launches of one ranked pass (freqs and BM25 docs, every
+    part), timed through the wrappers and alone, beside their bound."""
+    import torch
+
+    from ds2i_torch.ops.block_decode import (
+        KERNELS, WRAPPERS, split_decode_part, split_decode_part_torch,
+    )
+
+    s, dev, nd = eng.state, eng.device, eng.num_docs
+    parts = []
+    for p in plan["plans"]:
+        gt, gf, bp = p["_dev"][dev][:3]
+        lay = p["split"]
+        rows = 1 << max(lay.nb_d - 1, 0).bit_length()
+        args = (s.docs_words, s.tiles_docs, s.tiles_freqs, gt, gf, bp, lay, nd, "bm25",
+                s.den_blocks, s.tile_gblk0, rows)
+        (gd, gw), (pd, pw) = split_decode_part(*args), split_decode_part_torch(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(gd, pd) and torch.equal(gw, pw)):
+            raise AssertionError("split_decode_part differs from split_decode_part_torch on a "
+                                 "part of the slice's plan")
+        freq = torch.empty((lay.nb_f, 32), dtype=torch.int32, device=dev)
+        for kernel in KERNELS:
+            launch = lay.launch(kernel, False, dev)
+            if launch.n_cta:
+                WRAPPERS[kernel](launch, s.docs_words, s.tiles_freqs, gf, "freqs", nd, freq)
+        parts.append((p, gt, gf, bp, lay, freq, gd.clone(), gw.clone()))
+    log(f"part phase: split_decode_part == split_decode_part_torch on all {len(parts)} parts "
+        f"of the slice's plan, docs32 and w32 bit for bit")
+    for kernel in KERNELS:
+        wrapper = WRAPPERS[kernel]
+
+        def run():
+            for _, gt, gf, bp, lay, freq, docs, w in parts:
+                for mode in ("freqs", "bm25"):
+                    is_docs = mode == "bm25"
+                    launch = lay.launch(kernel, is_docs, dev)
+                    if launch.n_cta:
+                        wrapper(launch, s.docs_words, s.tiles_docs if is_docs else s.tiles_freqs,
+                                gt if is_docs else gf, mode, nd, docs if is_docs else freq,
+                                w if is_docs else None, freq, bp, s.den_blocks, s.tile_gblk0)
+
+        n = sum(lay.launch(kernel, d, dev).n_cta > 0 for _, _, _, _, lay, _, _, _ in parts
+                for d in (True, False))
+        if n == 0:
+            continue
+        ms = cuda_ms(run)
+        dev_ms = device_only_ms(run)
+        nbytes = sum(block_launch_bytes(eng, lay.launch(kernel, mode == "bm25", dev),
+                                        np.asarray(p[key]), mode, code_words)
+                     for p, _, _, _, lay, _, _, _ in parts
+                     for mode, key in (("freqs", "gtile_f"), ("bm25", "gtile_ids")))
+        bound_ms, bound_by = bound(nbytes)
+        log(f"part phase: {wrapper.__name__}: one ranked pass, {n} launches: {ms:.4f} ms through "
+            f"the wrapper, {fmt_ms(dev_ms)} alone (median of 5); bound {bound_ms:.4f} ms by "
+            f"{bound_by} ({nbytes} bytes)")
 
 
 def slice_phase(eng, queries, wrappers, tag):
     """A main path: prepare the whole log, 1 warmup + PASSES timed
-    passes. Every wrapper's launch count must rise in the timed passes.
-    Returns the last pass's results."""
+    passes. Every wrapper's launch count must rise in the timed passes;
+    a split-mode pass launches each block kernel at most twice a part
+    (once per stream). Returns the plan and the last pass's results."""
     import torch
 
     torch.cuda.reset_peak_memory_stats()
@@ -344,6 +600,13 @@ def slice_phase(eng, queries, wrappers, tag):
     for name, n in timed.items():
         if n <= 0:
             raise AssertionError(f"the timed passes never launched the CUDA {name}")
+    nparts = len(plan["plans"])
+    log(f"{tag} slice phase: launches a pass: "
+        f"{ {name: n / PASSES for name, n in timed.items()} } over {nparts} parts")
+    if plan["plans"][0]["split"] is not None:
+        for name, n in timed.items():
+            if n > 2 * nparts * PASSES:
+                raise AssertionError(f"{name}: {n / PASSES} launches a pass, more than 2 a part")
     us = [x / len(queries) * 1e6 for x in times]
     log(f"{tag} slice phase: exhaustive ranked_and top-10, {len(queries)} queries, {PASSES} "
         f"passes: median {statistics.median(us):.4f} us/query (min {min(us):.4f}, max "
@@ -351,7 +614,7 @@ def slice_phase(eng, queries, wrappers, tag):
         f"passes: {timed}")
     log(f"{tag} slice phase: resident state {eng.state.nbytes()} bytes; "
         f"peak device memory {torch.cuda.max_memory_allocated()} bytes")
-    return res
+    return plan, res
 
 
 def main_path(eng, queries, path_kernels, tag):
@@ -364,7 +627,7 @@ def main_path(eng, queries, path_kernels, tag):
                     block_decode.interp_decode)
     for w in all_wrappers:
         w.launches = 0
-    res = slice_phase(eng, queries, [w for _, w in path_kernels], tag)
+    plan, res = slice_phase(eng, queries, [w for _, w in path_kernels], tag)
     log(f"{tag} slice phase: launches over the main path: "
         f"{ {w.__name__: w.launches for w in all_wrappers} }")
     for entry, w in path_kernels:
@@ -372,6 +635,36 @@ def main_path(eng, queries, path_kernels, tag):
         if w.launches <= 0:
             raise AssertionError(f"the {tag} main path never launched the CUDA {entry['name']}")
     check_results(res, len(queries))
+    decode_stage_phase(eng, plan, tag)
+    return plan
+
+
+def decode_stage_phase(eng, plan, tag):
+    """The decode stage of one ranked pass alone: every part's
+    _decode_part, host clock from the first call to a synchronise after
+    the last (median of 5, after one untimed pass)."""
+    import torch
+
+    from ds2i_torch.engine import resident
+
+    dev = eng.device
+    s = eng.state
+
+    def one_pass():
+        for p in plan["plans"]:
+            gt, gf, bp = p["_dev"][dev][:3]
+            resident._decode_part(s, gt, gf, bp, p["groups"], p["split"], eng.num_docs, True)
+        torch.cuda.synchronize()
+
+    one_pass()
+    times = []
+    for _ in range(5):
+        t = time.perf_counter()
+        one_pass()
+        times.append((time.perf_counter() - t) * 1e3)
+    log(f"{tag} decode stage: _decode_part over the {len(plan['plans'])} parts of a ranked pass: "
+        f"{statistics.median(times):.4f} ms host clock to the synchronise (median of 5; "
+        f"min {min(times):.4f}, max {max(times):.4f})")
 
 
 def check_results(res, n):
@@ -441,9 +734,10 @@ def main():
     # block_optpfor path: split mode
     index = build_index(coll, "block_optpfor")
     eng = start_engine(index, wdata)
-    block_entries = block_kernel_phase(eng, index)
-    main_path(eng, queries, [(e, getattr(block_decode, e["name"])) for e in block_entries],
-              "block_optpfor")
+    block_entries, code_words = block_kernel_phase(eng, index)
+    plan = main_path(eng, queries, [(e, getattr(block_decode, e["name"])) for e in block_entries],
+                     "block_optpfor")
+    part_kernel_phase(eng, plan, code_words)
     oracle_phase(eng, index, wdata, queries, ORACLE_QUERIES, "block_optpfor")
     del eng
 

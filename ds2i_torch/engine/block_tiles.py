@@ -1,12 +1,12 @@
-"""Host copy of ds2i_tpu/engine/block_tiles.py (numpy only).
+"""The port's copy of ds2i_tpu/engine/block_tiles.py (numpy only), over
+the port's own codecs, index and native library.
 
-Importing the original runs ds2i_tpu/engine/__init__.py, which loads
-JAX, and the port edits nothing of ds2i_tpu, so this copy is permanent.
+The port imports nothing of the JAX package, so this copy is permanent.
 tests/test_torch_block_tiles.py pins it to the original: tables,
 statics, gids and patch words, native and Python walk alike. One
-difference: the original reads DS2I_NATIVE=0 to force the Python walk;
-the port has no knobs, so here the Python walk runs only where the
-native library (ds2i_tpu.native) is unavailable.
+difference: the original also reads DS2I_NATIVE=0 here; in the port that
+switch lives in the native loader (ds2i_torch.native), which then loads
+nothing, so the Python walk runs where the library is unavailable.
 
 Host-side tile tables for block-codec indexes (block_freq_index).
 
@@ -44,14 +44,14 @@ to 8GB, lifting the old 2^31-bit (256MB) per-stream limit:
 
 import numpy as np
 
-from ds2i_tpu.codecs.interpolative import UNKNOWN_SUM, InterpolativeBlock
-from ds2i_tpu.codecs.mixed import INTERPOLATIVE, MixedBlock, PFOR, VARINT
-from ds2i_tpu.codecs.optpfor import OptPForBlock
-from ds2i_tpu.codecs.qmx import ADV_OF_TYPE, QMXBlock
-from ds2i_tpu.codecs.simple16 import S16_MODES
-from ds2i_tpu.codecs.varint import VarintG8IUBlock
-from ds2i_tpu.codecs.vbyte import TightVariableByte
-from ds2i_tpu.index.block_index import BlockPostingList
+from ..codecs.interpolative import UNKNOWN_SUM, InterpolativeBlock
+from ..codecs.mixed import INTERPOLATIVE, MixedBlock, PFOR, VARINT
+from ..codecs.optpfor import OptPForBlock
+from ..codecs.qmx import ADV_OF_TYPE, QMXBlock
+from ..codecs.simple16 import S16_MODES
+from ..codecs.varint import VarintG8IUBlock
+from ..codecs.vbyte import TightVariableByte
+from ..index.block_index import BlockPostingList
 from .tiles import F_BASE, F_KIND, F_NVALS, N_FIELDS, TILE, TileTables
 
 KIND_OPT = 8
@@ -304,7 +304,7 @@ def build_exception_patches(words, fields_list):
         # native twin (byte-identical, tested): one thread-parallel C++
         # pass over every exception stream — ~25x the numpy builder at
         # 50x (128 s -> ~5 s cold engine-init difference)
-        from ds2i_tpu.native import s16_exception_patches_native
+        from ..native import s16_exception_patches_native
 
         w0_a = np.concatenate([f[rows, BF_EX_W0] for f, rows, _, _ in sels])
         bo_a = np.concatenate([f[rows, BF_EX_BOFF] for f, rows, _, _ in sels])
@@ -356,7 +356,7 @@ def _build_native(index, data, size, codec):
     Identical tables/statics to the Python walk (tests/test_engine.py)."""
     if size == 0:
         return None
-    from ds2i_tpu.native import block_tables_native
+    from ..native import block_tables_native
 
     res = block_tables_native(data, index.endpoints(), _NATIVE_CODEC_IDS[codec])
     if res is None:

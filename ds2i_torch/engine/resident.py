@@ -14,10 +14,12 @@ Per part (one host plan each):
   2. decode each UNIQUE tile once, by hand-written CUDA kernels on the
      card: pair mode, per (W, WL, T) group, both streams in one launch
      (ops.pair_decode); split mode, each stream in its own group-major
-     order, per OptPFor (b, E) or interpolative (W, T) group
-     (ops.block_decode), the freq blocks then realigned to the docs
-     order by one block-row gather (blkperm)
-  3. doc-term weights f/(f+den) from the init-time norm cache
+     order, one launch per kernel (OptPFor, interpolative) and stream
+     over every group of the part (ops.block_decode.split_decode_part):
+     freqs first, then docs, whose launches also realign the freqs to
+     the docs order (blkperm) and write the weights
+  3. doc-term weights f/(f+den) from the init-time norm cache (pair mode
+     here; split mode inside the docs launches)
   4. each query row gathers its terms' 32-slot blocks by block index
   5. per length bucket: one stable row sort by docid joins the postings,
      bounded-run aggregation by shifted adds, AND/OR counts by row
@@ -32,14 +34,15 @@ order.
 """
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ds2i_tpu.codecs.interpolative import InterpolativeBlock
-from ds2i_tpu.codecs.optpfor import OptPForBlock
-from ds2i_tpu.queries.bm25 import BM25
-from ds2i_tpu.queries.parsing import query_freqs
+from ..codecs.interpolative import InterpolativeBlock
+from ..codecs.optpfor import OptPForBlock
+from ..queries.bm25 import BM25
+from ..queries.parsing import query_freqs
 
 from ..ops import block_decode, pair_decode
 from .block_tiles import BF_EX_BASE, build_block_tables, build_exception_patches
@@ -48,6 +51,7 @@ from .tiles import F_NVALS, N_FIELDS, TILE, build_tile_tables
 
 _F32 = np.float32
 _I32 = np.int32
+_PACKAGE = __name__.split(".")[0]
 BLOCK = 32
 NEG_INF = float("-inf")
 
@@ -71,85 +75,30 @@ def _decode_pair_blocks(docs_words, freqs_words, df, ff, st, R, num_docs):
     return doc.reshape(R * (T // BLOCK), BLOCK), freq.float().reshape(R * (T // BLOCK), BLOCK)
 
 
-def _decode_doc_group_blocks(docs_words, df, st, num_docs):
-    """One split-mode group's docids as masked, padded 32-slot block rows
-    (R * max(T//32, 1), 32); narrow tail groups (T < 32) pad to one block
-    with num_docs. Shared by the query step and the norm cache. The
-    stream decode (resident.py:_decode_block_stream) is
-    block_decode.block_stream: st = ("opt", b, 0, 128) | ("optp", b, E,
-    128) | ("interp", W, T); "var" and "qmx" wait for ROADMAP item 8."""
-    doc = block_decode.block_stream(docs_words, df, st, num_docs, True)
-    if st[-1] < BLOCK:
-        doc = torch.nn.functional.pad(doc, (0, BLOCK - st[-1]), value=num_docs)
-    return doc.reshape(-1, BLOCK)
-
-
-def _decode_freq_group_blocks(freqs_words, ff, st):
-    """One split-mode group's raw freqs as masked, padded 32-slot block
-    rows; narrow tail groups pad with 0."""
-    fv = block_decode.block_stream(freqs_words, ff, st, 0, False)
-    if st[-1] < BLOCK:
-        fv = torch.nn.functional.pad(fv, (0, BLOCK - st[-1]))
-    return fv.reshape(-1, BLOCK)
-
-
 def _norm_cache_step(docs_words, tiles_docs, norm_den, gtile_ids, groups, num_docs, split):
     """One-time decode of EVERY tile's docids -> per-slot BM25
     denominators, (total_blocks, 32) f32 in the canonical group-major
-    block order (docs stream only)."""
-    blocks = []
-    for off, R, st in groups:
-        df = tiles_docs[gtile_ids[off:off + R]]
-        if split:
-            blocks.append(_decode_doc_group_blocks(docs_words, df, st, num_docs))
-        else:
-            doc, _ = pair_decode.decode_pair(
-                docs_words, None, df, None, st[1], st[2], st[-1], num_docs)
-            blocks.append(doc.reshape(-1, BLOCK))
-    d = torch.cat(blocks, dim=0).long()
-    return norm_den[d.clamp(0, num_docs - 1)]
-
-
-def _cached_den_rows(den_blocks, tile_gblk0, ids, T):
-    """BM25-denominator rows for one decode group: a contiguous row gather
-    from the init-time cache (rows of tile t live at
-    [tile_gblk0[t], +T//32) in den_blocks)."""
-    bpt = max(T // BLOCK, 1)
-    idx = tile_gblk0[ids][:, None] + torch.arange(bpt, device=ids.device)[None, :]
-    return den_blocks[idx.reshape(-1)]
-
-
-def _decode_weight_blocks(state, gtile_ids, gtile_f, blkperm, groups, groups_f,
-                          num_docs, ranked):
-    """Decode every tile of the part into 32-slot block rows: returns
-    (docs32 int32, w32 f32) — docids (pads carry num_docs) and doc-term
-    weights (ranked) or 1.0 presence flags."""
-    if groups_f:
-        # SPLIT mode (block indexes): each stream decodes in its own
-        # group-major order; freq blocks realign to docs order by one
-        # contiguous block-row gather
-        d_blocks, f_blocks, den_rows = [], [], []
+    block order (docs stream only). split: the SplitLayout of the docs
+    groups (block indexes), else None."""
+    if split is not None:
+        d, _ = block_decode.split_decode_part(
+            docs_words, tiles_docs, None, gtile_ids, None, None, split, num_docs, None)
+    else:
+        blocks = []
         for off, R, st in groups:
-            ids = gtile_ids[off:off + R]
-            d_blocks.append(_decode_doc_group_blocks(
-                state.docs_words, state.tiles_docs[ids], st, num_docs))
-            if ranked:
-                den_rows.append(_cached_den_rows(state.den_blocks, state.tile_gblk0, ids, st[-1]))
-        for off, R, st in groups_f:
-            ids = gtile_f[off:off + R]
-            f_blocks.append(_decode_freq_group_blocks(
-                state.freqs_words, state.tiles_freqs[ids], st))
-        docs32 = torch.cat(d_blocks, dim=0)
-        freq32 = torch.cat(f_blocks, dim=0)[blkperm].float()
-        if ranked:
-            den = torch.cat(den_rows, dim=0)
-            # one f32 add + one f32 divide, as in the pair branch
-            w = torch.where(docs32 < num_docs, freq32 / (freq32 + den), 0.0)
-        else:
-            w = torch.where(docs32 < num_docs, 1.0, 0.0)
-        return docs32, w
+            doc, _ = pair_decode.decode_pair(
+                docs_words, None, tiles_docs[gtile_ids[off:off + R]], None, st[1], st[2],
+                st[-1], num_docs)
+            blocks.append(doc.reshape(-1, BLOCK))
+        d = torch.cat(blocks, dim=0)
+    return norm_den[d.long().clamp(0, num_docs - 1)]
 
-    # PAIR mode (EF family): both streams share the group layout
+
+def _decode_weight_blocks(state, gtile_ids, groups, num_docs, ranked):
+    """Decode every tile of a pair-mode (EF family) part into 32-slot
+    block rows: returns (docs32 int32, w32 f32) — docids (pads carry
+    num_docs) and doc-term weights (ranked) or 1.0 presence flags. Both
+    streams share the group layout."""
     docs_blocks, w_blocks = [], []
     for off, R, st in groups:
         ids = gtile_ids[off:off + R]
@@ -157,7 +106,7 @@ def _decode_weight_blocks(state, gtile_ids, gtile_f, blkperm, groups, groups_f,
             state.docs_words, state.freqs_words, state.tiles_docs[ids],
             state.tiles_freqs[ids], st, R, num_docs)
         if ranked:
-            den = _cached_den_rows(state.den_blocks, state.tile_gblk0, ids, st[-1])
+            den = block_decode.den_rows(state.den_blocks, state.tile_gblk0, ids, st[-1])
             # one f32 add + one f32 divide (IEEE on the card: no fast math)
             w = freq / (freq + den)
         else:
@@ -167,11 +116,17 @@ def _decode_weight_blocks(state, gtile_ids, gtile_f, blkperm, groups, groups_f,
     return torch.cat(docs_blocks, dim=0), torch.cat(w_blocks, dim=0)
 
 
-def _decode_part(state, gtile_ids, gtile_f, blkperm, groups, groups_f, num_docs, ranked):
+def _decode_part(state, gtile_ids, gtile_f, blkperm, groups, split, num_docs, ranked):
     """Decode stage of one part; the slot tables pad to a power-of-two row
-    count (pad rows: docid num_docs, weight 0), as in the JAX engine."""
-    docs32, w32 = _decode_weight_blocks(
-        state, gtile_ids, gtile_f, blkperm, groups, groups_f, num_docs, ranked)
+    count (pad rows: docid num_docs, weight 0), as in the JAX engine.
+    split: the part's SplitLayout (block indexes: gtile_f and blkperm are
+    its freqs-order rows and realign), else None (pair mode)."""
+    if split is not None:
+        return block_decode.split_decode_part(
+            state.docs_words, state.tiles_docs, state.tiles_freqs, gtile_ids, gtile_f, blkperm,
+            split, num_docs, "bm25" if ranked else "presence", state.den_blocks,
+            state.tile_gblk0, out_rows=_pow2_at_least(split.nb_d))
+    docs32, w32 = _decode_weight_blocks(state, gtile_ids, groups, num_docs, ranked)
     rows = docs32.shape[0]
     rp = _pow2_at_least(rows)
     if rp > rows:
@@ -236,14 +191,14 @@ def _pack_rows(rows, pack_idx, fscale, fetch16):
 
 
 def _resident_step(state, gtile_ids, gtile_f, blkperm, bucket_dir, bucket_qwtab,
-                   bucket_tgt, pack_idx, groups, groups_f, num_docs, k, ops, tmax,
+                   bucket_tgt, pack_idx, groups, split, num_docs, k, ops, tmax,
                    fetch16, fscale):
     """One part: decode -> per-bucket join -> pack. gtile_f, blkperm and
-    groups_f are the freqs-order layout of split mode (unused in pair
-    mode, where groups_f is empty)."""
+    split are the split-mode layout (unused in pair mode, where split is
+    None)."""
     ranked = ("or" in ops) or ("and" in ops)
     docs32, w32 = _decode_part(
-        state, gtile_ids, gtile_f, blkperm, groups, groups_f, num_docs, ranked)
+        state, gtile_ids, gtile_f, blkperm, groups, split, num_docs, ranked)
     rows = tuple(
         _join_bucket(docs32, w32, d, q, t, num_docs=num_docs, k=k, ops=ops, tmax=tmax)
         for d, q, t in zip(bucket_dir, bucket_qwtab, bucket_tgt)
@@ -252,6 +207,17 @@ def _resident_step(state, gtile_ids, gtile_f, blkperm, bucket_dir, bucket_qwtab,
 
 
 # -- engine ------------------------------------------------------------------
+
+
+class TilesPart(NamedTuple):
+    """ResidentEngine.all_tiles_part: every tile as one split-mode part."""
+
+    gtile_ids: torch.Tensor
+    gtile_f: torch.Tensor
+    blkperm: torch.Tensor
+    split: "block_decode.SplitLayout"  # a string: ops.block_decode imports this module
+    tblk: np.ndarray
+    tblk_f: np.ndarray
 
 
 class ResidentEngine:
@@ -293,6 +259,11 @@ class ResidentEngine:
     def _init_host(self, index, max_part_slots, max_part_queries):
         """Host tables and plan state; returns the (docs, freqs) word
         arrays to upload (one array for both in split mode)."""
+        if type(index).__module__.split(".")[0] != _PACKAGE:
+            raise TypeError(
+                f"ResidentEngine serves indexes built by {_PACKAGE}; got a "
+                f"{type(index).__module__}.{type(index).__qualname__}"
+            )
         self.index = index
         self.num_docs = index.num_docs()
         self.max_part_slots = max_part_slots
@@ -427,7 +398,7 @@ class ResidentEngine:
         s.den_blocks = _norm_cache_step(
             s.docs_words, s.tiles_docs, s.norm_den,
             torch.from_numpy(gtile_ids.astype(np.int64)).to(self.device),
-            groups, self.num_docs, self.split,
+            groups, self.num_docs, block_decode.SplitLayout(groups) if self.split else None,
         )
 
     def _docs_grouping(self):
@@ -532,6 +503,21 @@ class ResidentEngine:
                 np.repeat(tblk_f - bex, bpt) + np.arange(tot_b, dtype=np.int64)
             )
         return groups_f, gtile_f, blkperm
+
+    def all_tiles_part(self):
+        """Every tile of a split-mode engine as one part, laid out as a
+        plan's part is: (gtile_ids, gtile_f, blkperm) int64 on the
+        engine's device, the part's SplitLayout, and each tile's first
+        docs-order and freqs-order block (host arrays)."""
+        if not self.split:
+            raise ValueError("all_tiles_part lays out split-mode (block index) engines")
+        utidx = np.arange(self.pad_tile)
+        groups, gtile, tblk, _, nb_d = self._order_groups(utidx, *self._docs_grouping())
+        groups_f, gtile_f, blkperm = self._split_layout(utidx, tblk, nb_d)
+        _, _, tblk_f, _, _ = self._order_groups(utidx, self.tile_gid_f, self.group_statics_f)
+        put = lambda a: torch.from_numpy(a.astype(np.int64)).to(self.device)  # noqa: E731
+        return TilesPart(put(gtile), put(gtile_f), put(blkperm),
+                         block_decode.SplitLayout(groups, groups_f), tblk, tblk_f)
 
     def _part_plan(self, terms, qw, counts, k, ops, tmax, qids):
         """Layout for one part: group-major unique-tile ids + per-bucket
@@ -665,6 +651,8 @@ class ResidentEngine:
             "blkperm": blkperm,
             "groups": tuple(groups),
             "groups_f": tuple(groups_f),
+            # split mode: the CTA tables of the part's kernel launches
+            "split": block_decode.SplitLayout(groups, groups_f) if self.split else None,
             "buckets": plan_buckets,
             "pack_idx": pack_idx,
             "sent_dir": int(sent_blk << 5),
@@ -760,11 +748,13 @@ class ResidentEngine:
                     tuple(put(b["tgt"]) for b in bb),
                     put(p["pack_idx"].astype(np.int64)),
                 )
+                if p["split"] is not None:
+                    p["split"].upload(dev)
             d_gt, d_gf, d_bp, d_dir, d_qw, d_tgt, d_pidx = cache[dev]
             fetch16 = "counts" not in p["ops"] and p["fscale"] is not None
             out = _resident_step(
                 self.state, d_gt, d_gf, d_bp, d_dir, d_qw, d_tgt, d_pidx,
-                groups=p["groups"], groups_f=p["groups_f"], num_docs=self.num_docs,
+                groups=p["groups"], split=p["split"], num_docs=self.num_docs,
                 k=p["k"], ops=p["ops"], tmax=p["tmax"], fetch16=fetch16,
                 fscale=p["fscale"] if fetch16 else None,
             )

@@ -1,9 +1,7 @@
-"""Host copy of ds2i_tpu/engine/tiles.py (numpy only).
+"""The port's copy of ds2i_tpu/engine/tiles.py (numpy only).
 
-Importing the original runs ds2i_tpu/engine/__init__.py, which loads
-JAX; the port carries this copy until ROADMAP item 14 (lazy ds2i_tpu
-package __init__s) removes it. tests/test_torch_tiles.py pins the copy to
-the original.
+The port imports nothing of the JAX package, so this copy is permanent;
+tests/test_torch_tiles.py pins it to the original.
 
 Host-side tile tables: 128-value tiles over every posting list.
 
@@ -144,7 +142,7 @@ def build_tile_tables(index, cache_selects=True):
     vectorized fast path (tiles_fast.build_tile_tables_ef, identical
     output); other compositions use the generic per-list walk below."""
     try:
-        from ds2i_tpu.index.types import is_plain_ef_index
+        from ..index.types import is_plain_ef_index
         if is_plain_ef_index(index):
             from .tiles_fast import build_tile_tables_ef
             return build_tile_tables_ef(index)

@@ -1,5 +1,5 @@
-"""Host copy of ds2i_tpu/engine/tiles_fast.py (numpy only), carried for
-the same reason as engine/tiles.py and removed with it (ROADMAP item 14).
+"""The port's copy of ds2i_tpu/engine/tiles_fast.py (numpy only), carried
+for the same reason as engine/tiles.py.
 
 Vectorized tile-table construction for the plain `ef` index type.
 

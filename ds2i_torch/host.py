@@ -1,15 +1,17 @@
-"""The host-side (numpy) layers the port shares with ds2i_tpu.
+"""The host-side (numpy and C++) layers of the port, in one place.
 
 Collection IO, index construction, BM25 wand data and the cursor oracle
-are numpy and C++ code of ds2i_tpu that loads without JAX (tested by
-tests/test_torch_nojax.py). They are re-exported here so the port's
-entry points (chip_smoke.py) name one package.
+are the port's own copies of ds2i_tpu's (ds2i_torch.{io, index, queries,
+global_params, ...}; tests/test_torch_host_copy.py pins them to the
+originals, tests/test_torch_nojax.py shows the port imports neither JAX
+nor ds2i_tpu). They are re-exported here so the port's entry points
+(chip_smoke.py) name one module.
 """
 
-from ds2i_tpu.global_params import GlobalParameters
-from ds2i_tpu.index.types import make_index_type
-from ds2i_tpu.io import BinaryFreqCollection, generate_collection, read_sizes
-from ds2i_tpu.queries import (
+from .global_params import GlobalParameters
+from .index.types import make_index_type
+from .io import BinaryFreqCollection, generate_collection, read_sizes
+from .queries import (
     WandData, and_query, or_query, ranked_and_query, ranked_or_query, read_queries,
 )
 

@@ -6,7 +6,7 @@ build/ds2i_torch/ at the repository root, keyed by a hash of the source,
 the shared headers (csrc/*.cuh) and the flags. The first call to lib()
 starts one nvcc for every library not yet built, all together, waits for
 them, and loads every library with ctypes (the pattern of
-ds2i_tpu/native). Nothing is compiled when this module is imported.
+ds2i_torch/native). Nothing is compiled when this module is imported.
 """
 
 import ctypes
@@ -25,11 +25,13 @@ NVCC_FLAGS = [
 ]  # never --use_fast_math: the kernels' integer work must stay exact
 
 _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_BLOCK_ARGS = [
-    _p, _ll, _p,  # words, word count, field rows (R, N_FIELDS) int32
-    _i, _i, _i, _i,  # R, statics (optpfor: b, E; interp: W, 0), T
-    _i, _i,  # is_docs, num_docs
-    _p, _p,  # out (R, T) int32, cudaStream_t
+_PART_ARGS = [
+    _p, _ll, _p, _p,  # words, word count, field table (rows, N_FIELDS) int32, row->tile int64
+    _p, _i, _i, _i,  # CTA table (n_cta, 6) int32, n_cta, max_w, max_t
+    _i, _i,  # mode (csrc/common.cuh Mode), num_docs
+    _p, _p,  # out int32 blocks, w f32 blocks (or NULL)
+    _p, _p, _p, _p,  # freq blocks, blkperm, den_blocks, tile_gblk0 (bm25 mode, else NULL)
+    _p,  # cudaStream_t
 ]
 # entry point and argtypes of each kernel library (csrc/<name>.cu)
 ENTRY_POINTS = {
@@ -40,8 +42,8 @@ ENTRY_POINTS = {
         _p, _p,  # doc_out, freq_out (or NULL)
         _p,  # cudaStream_t
     ]),
-    "optpfor_decode": ("ds2i_optpfor_decode", _BLOCK_ARGS),
-    "interp_decode": ("ds2i_interp_decode", _BLOCK_ARGS),
+    "optpfor_decode": ("ds2i_optpfor_decode_part", _PART_ARGS),
+    "interp_decode": ("ds2i_interp_decode_part", _PART_ARGS),
 }
 
 _LIBS = {}

@@ -13,11 +13,21 @@ engine's split mode:
 
 `optpfor_decode_torch` and `interp_decode_torch` transcribe the JAX ops'
 raw outputs; `block_stream_torch` adds the assembly and the pad mask
-(docs slots j >= n_vals -> num_docs, freqs -> 0), so its (R, T) int32
-result is the kernels' contract. The wrappers `optpfor_decode` and
-`interp_decode` take that plain version for CPU tensors only; on CUDA
-tensors they launch their kernel (one launch, counted in `.launches`)
-or raise. `block_stream` picks the wrapper by the group's statics.
+(docs slots j >= n_vals -> num_docs, freqs -> 0) for one group.
+
+A part decodes in one launch per kernel and stream (freqs first, only
+for BM25 weights; then docs), over every group of the part: the host
+plan's SplitLayout holds each launch's CTA table (cta_table), and the
+kernels write 32-slot block rows straight into the part's tensors, the
+narrow-tail pad, the freq realign (blkperm), the norm-cache den rows
+and the weight w = f / (f + den) included (the JAX engine's
+resident.py:_decode_weight_blocks split branch and _decode_part's pad).
+`split_decode_part_torch` is that whole decode in plain PyTorch, from
+the per-group block_stream_torch; `decode_launch_torch` is what one
+launch writes. The wrappers `optpfor_decode` and `interp_decode` (one
+launch each, counted in `.launches`) and `split_decode_part` take those
+plain versions for CPU tensors only; on CUDA tensors they launch the
+kernels or raise.
 
 Words are int32 tensors holding the uint32 words' bits; the plain
 versions widen them to int64 masked with 0xFFFFFFFF, so every shift and
@@ -25,6 +35,7 @@ mask is the unsigned 32-bit one of the JAX ops, and int32 sums wrap as
 they do there.
 """
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -33,7 +44,7 @@ from ..engine.block_tiles import (
     _E_BUCKETS, _NC_BUCKETS, _WIN_BUCKETS,
 )
 from ..engine.tiles import F_BASE, F_NVALS, N_FIELDS, TILE
-from .pair_decode import _gather_words
+from . import pair_decode  # its names are read at call time: engine imports this module
 
 _M32 = 0xFFFFFFFF
 DEPTH = 8  # interp_device.DEPTH: DFS stack depth for <= 128 values
@@ -59,7 +70,7 @@ def optpfor_decode_torch(words, slot_w0, slot_boff, n_ex, ex_base, WS, E, b_stat
     j = torch.arange(T, device=dev, dtype=torch.int64)[None, :]
 
     widx = slot_w0.long()[:, None] + torch.arange(WS + 1, device=dev, dtype=torch.int64)[None, :]
-    win = _gather_words(words, widx)  # (R, WS+1)
+    win = pair_decode._gather_words(words, widx)  # (R, WS+1)
     bs = min(b_static, 32)
     s0 = slot_boff.long()[:, None]
     nxt = torch.cat([win[:, 1:], torch.zeros((R, 1), dtype=torch.int64, device=dev)], dim=1)
@@ -79,8 +90,8 @@ def optpfor_decode_torch(words, slot_w0, slot_boff, n_ex, ex_base, WS, E, b_stat
         # [+1] = high << b; a sum over the hits, as the JAX op takes it
         ee = torch.arange(E, device=dev, dtype=torch.int64)[None, :]
         pidx = (ex_base.long()[:, None] + 2 * ee).clamp(0, max(nw - 2, 0))
-        pos = _i32(_gather_words(words, pidx))
-        add = _gather_words(words, pidx + 1)
+        pos = _i32(pair_decode._gather_words(words, pidx))
+        add = pair_decode._gather_words(words, pidx + 1)
         evalid = ee < n_ex.long()[:, None]
         hit = (j[:, :, None] == pos[:, None, :]) & evalid[:, None, :]
         out = out | (torch.where(hit, add[:, None, :], 0).sum(dim=2) & _M32)
@@ -208,7 +219,7 @@ def block_stream_torch(words, fld, st, num_docs, is_docs):
     elif kind == "interp":
         W = st[1]
         widx = col(BF_W0) + torch.arange(W, device=dev, dtype=torch.int64)[None, :]
-        win = _gather_words(words, widx)
+        win = pair_decode._gather_words(words, widx)
         cum = interp_decode_torch(
             win, f[:, BF_BOFF], f[:, F_NVALS], f[:, BF_EX_W0], NC=T, W=W, steps=T - 1).long()
         if is_docs:
@@ -222,78 +233,325 @@ def block_stream_torch(words, fld, st, num_docs, is_docs):
     return torch.where(valid, _i32(val), num_docs if is_docs else 0).int()
 
 
-def _check_cuda_args(words, fld):
-    for name, t in (("words", words), ("fld", fld)):
-        if t.device != words.device or t.dtype != torch.int32 or not t.is_contiguous():
+# -- the part-level split decode ---------------------------------------------
+#
+# One launch of each kernel per stream of a part (csrc/common.cuh): a CTA
+# table lists every CTA's rows, each inside one group, and the kernels
+# write 32-slot block rows straight into the part's tensors, pads, the
+# freq realign, the den rows and the weights included.
+
+BLOCK = 32
+K1_ROWS = 8  # rows per K1 CTA, one warp each (csrc/optpfor_decode.cu kWarps)
+K2_ROWS = 32  # rows per K2 CTA, one thread each (csrc/interp_decode.cu kRows)
+CTA_FIELDS = 6  # [p1, p2, T, row0, nrows, blk0]
+MODES = {"freqs": 0, "docs": 1, "presence": 2, "bm25": 3}  # csrc/common.cuh Mode
+KERNELS = ("optpfor", "interp")
+
+
+def _kernel_of(st):
+    """Which kernel decodes a group of statics st."""
+    if st[0] in ("opt", "optp"):
+        if st[0] == "opt" and st[2] > 0:
+            raise NotImplementedError(
+                "the in-pass Simple16 exception decode is not ported; block "
+                "indexes decode exceptions from resident patch words (\"optp\")")
+        if st[-1] != TILE or not 0 <= st[1] <= 32 or st[2] not in _E_BUCKETS:
+            raise ValueError(f"optpfor_decode takes (\"opt\"|\"optp\", b in 0..32, E in "
+                             f"{_E_BUCKETS}, 128), got {st}")
+        return "optpfor"
+    if st[0] == "interp":
+        if st[1] not in _WIN_BUCKETS or st[2] not in _NC_BUCKETS:
+            raise ValueError(f"interp_decode takes (\"interp\", W in {_WIN_BUCKETS}, T in "
+                             f"{_NC_BUCKETS}), got {st}")
+        return "interp"
+    raise NotImplementedError(f"block stream kind {st[0]!r} waits for {ITEM8}")
+
+
+def cta_table(groups, kernel):
+    """The CTA table of one kernel over one stream's groups ((off, R, st)
+    in group-major row order, as _order_groups lays them out): int32
+    (n, CTA_FIELDS) rows [p1, p2, T, row0, nrows, blk0], each CTA's rows
+    inside one group; K2's CTAs ordered by T, longest first (stable).
+    Returns (table, total blocks of the stream)."""
+    rows_per = K1_ROWS if kernel == "optpfor" else K2_ROWS
+    ents, blk = [], 0
+    for off, R, st in groups:
+        T = st[-1]
+        bpt = max(T // BLOCK, 1)
+        if _kernel_of(st) == kernel:
+            p1, p2 = (st[1], st[2]) if kernel == "optpfor" else (st[1], 0)
+            ents += [(p1, p2, T, off + r0, min(rows_per, R - r0), blk + r0 * bpt)
+                     for r0 in range(0, R, rows_per)]
+        blk += R * bpt
+    tab = np.array(ents, dtype=np.int64).reshape(-1, CTA_FIELDS)
+    if kernel == "interp":
+        tab = tab[np.argsort(-tab[:, 2], kind="stable")]
+    if tab.size and tab.max() >= 2**31:
+        raise ValueError("a part's rows or blocks pass 2^31")
+    return tab.astype(np.int32), blk
+
+
+class Launch:
+    """One kernel's launch over one stream of a part: its CTA table on the
+    host, its copy on one device, and the launch sizes."""
+
+    def __init__(self, kernel, host, dev):
+        self.kernel, self.host, self.dev = kernel, host, dev
+        self.n_cta = len(host)
+        if kernel == "optpfor":
+            self.max_w, self.max_t = 0, TILE
+        else:
+            self.max_w = int(host[:, 0].max()) if self.n_cta else 1
+            self.max_t = int(host[:, 2].max()) if self.n_cta else 1
+
+
+class SplitLayout:
+    """One part's split decode: the docs- and freqs-order groups and the
+    CTA table of each kernel and stream, built once on the host with the
+    plan and uploaded once per device."""
+
+    def __init__(self, groups, groups_f=()):
+        self.groups, self.groups_f = tuple(groups), tuple(groups_f)
+        self.tables = {}
+        for is_docs, grp in ((True, self.groups), (False, self.groups_f)):
+            for kernel in KERNELS:
+                self.tables[kernel, is_docs], nb = cta_table(grp, kernel)
+            if is_docs:
+                self.nb_d = nb
+            else:
+                self.nb_f = nb
+        self._launches = {}
+
+    def upload(self, device):
+        """Every CTA table to `device` (once; later calls find them)."""
+        for kernel in KERNELS:
+            for is_docs in (True, False):
+                self.launch(kernel, is_docs, device)
+
+    def launch(self, kernel, is_docs, device):
+        key = (kernel, is_docs, str(device))
+        if key not in self._launches:
+            host = self.tables[kernel, is_docs]
+            self._launches[key] = Launch(kernel, host, torch.from_numpy(host).to(device))
+        return self._launches[key]
+
+
+def den_rows(den_blocks, tile_gblk0, ids, T):
+    """BM25-denominator rows of one group from the norm cache (the JAX
+    engine's resident.py:_cached_den_rows): rows of tile t live at
+    [tile_gblk0[t], +bpt) in den_blocks."""
+    bpt = max(T // BLOCK, 1)
+    idx = tile_gblk0[ids][:, None] + torch.arange(bpt, device=ids.device)[None, :]
+    return den_blocks[idx.reshape(-1)]
+
+
+def _group_blocks(words, fld, st, num_docs, is_docs):
+    """One group's stream as masked 32-slot block rows; narrow tails
+    (T < 32) pad to one block with num_docs (docs) or 0 (freqs)."""
+    v = block_stream_torch(words, fld, st, num_docs, is_docs)
+    if st[-1] < BLOCK:
+        v = torch.nn.functional.pad(v, (0, BLOCK - st[-1]), value=num_docs if is_docs else 0)
+    return v.reshape(-1, BLOCK)
+
+
+def _weights(docs32, num_docs, weights, freq32=None, den=None):
+    if weights == "presence":
+        return torch.where(docs32 < num_docs, 1.0, 0.0)
+    # one f32 add + one f32 divide (IEEE, rounded to nearest)
+    return torch.where(docs32 < num_docs, freq32 / (freq32 + den), 0.0)
+
+
+def split_decode_part_torch(words, tiles_docs, tiles_freqs, gtile_ids, gtile_f, blkperm,
+                            layout, num_docs, weights, den_blocks=None, tile_gblk0=None,
+                            out_rows=None):
+    """The whole split decode of a part in plain PyTorch (the JAX engine's
+    resident.py:_decode_weight_blocks split branch and _decode_part's
+    pad): (docs32 int32, w32 f32 or None), (out_rows, 32) each, from the
+    per-group block_stream_torch, the narrow-tail pad, the blkperm freq
+    gather and the weight. weights: None (docs only, the norm cache),
+    "presence" (1.0 where doc < num_docs) or "bm25" (f / (f + den) there,
+    den from the norm cache). Rows past the part's blocks carry num_docs
+    and weight 0."""
+    docs32 = torch.cat([
+        _group_blocks(words, tiles_docs[gtile_ids[off:off + R]], st, num_docs, True)
+        for off, R, st in layout.groups])
+    w32 = None
+    if weights == "bm25":
+        freq32 = torch.cat([
+            _group_blocks(words, tiles_freqs[gtile_f[off:off + R]], st, num_docs, False)
+            for off, R, st in layout.groups_f])[blkperm].float()
+        den = torch.cat([den_rows(den_blocks, tile_gblk0, gtile_ids[off:off + R], st[-1])
+                         for off, R, st in layout.groups])
+        w32 = _weights(docs32, num_docs, weights, freq32, den)
+    elif weights is not None:
+        w32 = _weights(docs32, num_docs, weights)
+    extra = (out_rows or len(docs32)) - len(docs32)
+    if extra > 0:
+        docs32 = torch.nn.functional.pad(docs32, (0, 0, 0, extra), value=num_docs)
+        w32 = None if w32 is None else torch.nn.functional.pad(w32, (0, 0, 0, extra))
+    return docs32, w32
+
+
+def decode_launch_torch(launch, words, fld, gtile, mode, num_docs, out, w=None, freq=None,
+                        blkperm=None, den_blocks=None, tile_gblk0=None):
+    """What one launch of a part-level kernel writes, in plain PyTorch: for
+    every CTA-table row of `launch`, its rows' blocks of out (and of w in
+    the weighted docs modes), as block_stream_torch, the pad and the
+    weight give them. Consecutive rows that continue one group decode in
+    one call."""
+    is_docs = mode != "freqs"
+    host = launch.host
+    i = 0
+    while i < len(host):
+        p1, p2, T, row0, n, blk0 = (int(x) for x in host[i])
+        bpt = max(T // BLOCK, 1)
+        j = i + 1
+        while (j < len(host) and tuple(int(x) for x in host[j, :3]) == (p1, p2, T)
+               and host[j, 3] == row0 + n and host[j, 5] == blk0 + n * bpt):
+            n += int(host[j, 4])
+            j += 1
+        if launch.kernel == "optpfor":
+            st = ("optp" if p2 > 0 else "opt", p1, p2, T)
+        else:
+            st = ("interp", p1, T)
+        ids = gtile[row0:row0 + n]
+        d = _group_blocks(words, fld[ids], st, num_docs, is_docs)
+        out[blk0:blk0 + n * bpt] = d
+        if mode in ("presence", "bm25"):
+            if mode == "bm25":
+                f = freq[blkperm[blk0:blk0 + n * bpt]].float()
+                w[blk0:blk0 + n * bpt] = _weights(
+                    d, num_docs, mode, f, den_rows(den_blocks, tile_gblk0, ids, T))
+            else:
+                w[blk0:blk0 + n * bpt] = _weights(d, num_docs, mode)
+        i = j
+    return out, w
+
+
+def _check_launch_args(launch, words, named):
+    """The kernels take contiguous tensors of one dtype each, all on the
+    words' device."""
+    dev = words.device
+    if launch.dev.device != dev:
+        raise ValueError(f"the CTA table lies on {launch.dev.device}, the words on {dev}")
+    for name, t, dtype in named:
+        if t is None:
+            continue
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(
-                f"{name}: the kernel takes contiguous int32 tensors on {words.device}, got "
+                f"{name}: the kernel takes a contiguous {dtype} tensor on {dev}, got "
                 f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
     if words.dim() != 1 or words.numel() == 0:
         raise ValueError("words must be a non-empty 1-D word array")
+
+
+def _decode_launch(wrapper, launch, words, fld, gtile, mode, num_docs, out, w, freq, blkperm,
+                   den_blocks, tile_gblk0):
+    """One launch of csrc/<wrapper name>.cu on the current stream; CPU
+    tensors take decode_launch_torch and count nothing."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
+    if words.device.type == "cpu":
+        return decode_launch_torch(launch, words, fld, gtile, mode, num_docs, out, w, freq,
+                                   blkperm, den_blocks, tile_gblk0)
+    if words.device.type != "cuda":
+        raise ValueError(f"{wrapper.__name__} runs on cuda or cpu, not {words.device}")
+    if launch.kernel != wrapper.__name__.split("_")[0]:
+        raise ValueError(f"{wrapper.__name__} got a CTA table of the {launch.kernel} kernel")
+    bm25 = mode == "bm25"
+    _check_launch_args(launch, words, [
+        ("words", words, torch.int32), ("fld", fld, torch.int32), ("gtile", gtile, torch.int64),
+        ("out", out, torch.int32), ("w", w, torch.float32),
+        ("freq", freq if bm25 else None, torch.int32),
+        ("blkperm", blkperm if bm25 else None, torch.int64),
+        ("den_blocks", den_blocks if bm25 else None, torch.float32),
+        ("tile_gblk0", tile_gblk0 if bm25 else None, torch.int64),
+    ])
     if fld.dim() != 2 or fld.shape[1] != N_FIELDS:
-        raise ValueError(f"fld must be (R, {N_FIELDS}), got {tuple(fld.shape)}")
-
-
-def _launch(wrapper, words, fld, T, num_docs, is_docs, p1, p2):
-    """One launch of the kernel of csrc/<wrapper name>.cu: (R, T) int32
-    on the current stream."""
-    _check_cuda_args(words, fld)
+        raise ValueError(f"fld must be (rows, {N_FIELDS}), got {tuple(fld.shape)}")
+    if mode in ("presence", "bm25") and w is None:
+        raise ValueError(f"mode {mode!r} writes weights: w must be given")
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     name = wrapper.__name__
     lib = kernels.lib(name)
-    R = fld.shape[0]
-    out = torch.empty((R, T), dtype=torch.int32, device=words.device)
     rc = getattr(lib, kernels.ENTRY_POINTS[name][0])(
-        words.data_ptr(), words.numel(), fld.data_ptr(), R, p1, p2, T,
-        int(bool(is_docs)), int(num_docs), out.data_ptr(),
+        words.data_ptr(), words.numel(), fld.data_ptr(), gtile.data_ptr(), launch.dev.data_ptr(),
+        launch.n_cta, launch.max_w, launch.max_t, MODES[mode], int(num_docs), out.data_ptr(),
+        ptr(w), ptr(freq) if bm25 else None, ptr(blkperm) if bm25 else None,
+        ptr(den_blocks) if bm25 else None, ptr(tile_gblk0) if bm25 else None,
         torch.cuda.current_stream(words.device).cuda_stream,
     )
     kernels.check(lib, rc, f"{name} launch")
     wrapper.launches += 1
-    return out
+    return out, w
 
 
-def optpfor_decode(words, fld, st, num_docs, is_docs):
-    """block_stream_torch's contract for an ("opt", b, 0, 128) or ("optp",
-    b, E, 128) group. CPU tensors take the plain version; CUDA tensors
-    launch csrc/optpfor_decode.cu (counted in optpfor_decode.launches) or
+def optpfor_decode(launch, words, fld, gtile, mode, num_docs, out, w=None, freq=None,
+                   blkperm=None, den_blocks=None, tile_gblk0=None):
+    """K1 over one stream of a part: every ("opt"|"optp", b, E, 128) group
+    that `launch` (SplitLayout.launch) lists, written into out (and w) as
+    decode_launch_torch writes them. CPU tensors take that plain version;
+    CUDA tensors launch csrc/optpfor_decode.cu once (counted in
+    optpfor_decode.launches) or raise."""
+    return _decode_launch(optpfor_decode, launch, words, fld, gtile, mode, num_docs, out, w,
+                          freq, blkperm, den_blocks, tile_gblk0)
+
+
+def interp_decode(launch, words, fld, gtile, mode, num_docs, out, w=None, freq=None,
+                  blkperm=None, den_blocks=None, tile_gblk0=None):
+    """K2 over one stream of a part: every ("interp", W, T) group that
+    `launch` lists, as optpfor_decode; CUDA tensors launch
+    csrc/interp_decode.cu once (counted in interp_decode.launches) or
     raise."""
-    if words.device.type == "cpu":
-        return block_stream_torch(words, fld, st, num_docs, is_docs)
-    if words.device.type != "cuda":
-        raise ValueError(f"optpfor_decode runs on cuda or cpu, not {words.device}")
-    kind, b, E, T = st
-    if kind not in ("opt", "optp") or T != TILE or not 0 <= b <= 32:
-        raise ValueError(f"optpfor_decode takes (\"opt\"|\"optp\", b in 0..32, E, 128), got {st}")
-    if E not in _E_BUCKETS or (kind == "opt" and E > 0):
-        raise ValueError(f"E={E}: \"optp\" takes E in {_E_BUCKETS}, \"opt\" only E=0")
-    return _launch(optpfor_decode, words, fld, T, num_docs, is_docs, b, E)
-
-
-def interp_decode(words, fld, st, num_docs, is_docs):
-    """block_stream_torch's contract for an ("interp", W, T) group. CPU
-    tensors take the plain version; CUDA tensors launch
-    csrc/interp_decode.cu (counted in interp_decode.launches) or raise."""
-    if words.device.type == "cpu":
-        return block_stream_torch(words, fld, st, num_docs, is_docs)
-    if words.device.type != "cuda":
-        raise ValueError(f"interp_decode runs on cuda or cpu, not {words.device}")
-    kind, W, T = st
-    if kind != "interp" or W not in _WIN_BUCKETS or T not in _NC_BUCKETS:
-        raise ValueError(
-            f"interp_decode takes (\"interp\", W in {_WIN_BUCKETS}, T in {_NC_BUCKETS}), got {st}")
-    return _launch(interp_decode, words, fld, T, num_docs, is_docs, W, 0)
+    return _decode_launch(interp_decode, launch, words, fld, gtile, mode, num_docs, out, w,
+                          freq, blkperm, den_blocks, tile_gblk0)
 
 
 optpfor_decode.launches = 0
 interp_decode.launches = 0
+WRAPPERS = {"optpfor": optpfor_decode, "interp": interp_decode}
 
 
-def block_stream(words, fld, st, num_docs, is_docs):
-    """One stream of one block group through its kernel's wrapper (the
-    JAX engine's resident.py:_decode_block_stream): (R, T) int32, pads
-    masked."""
-    if st[0] in ("opt", "optp"):
-        return optpfor_decode(words, fld, st, num_docs, is_docs)
-    if st[0] == "interp":
-        return interp_decode(words, fld, st, num_docs, is_docs)
-    raise NotImplementedError(f"block stream kind {st[0]!r} waits for {ITEM8}")
+def split_decode_part(words, tiles_docs, tiles_freqs, gtile_ids, gtile_f, blkperm, layout,
+                      num_docs, weights, den_blocks=None, tile_gblk0=None, out_rows=None):
+    """split_decode_part_torch's contract. CPU tensors take that plain
+    version; CUDA tensors run at most one K1 and one K2 launch per stream
+    (freqs first, only for "bm25"; then docs, with the weights), each
+    writing straight into the part's tensors, or raise."""
+    if words.device.type == "cpu":
+        return split_decode_part_torch(words, tiles_docs, tiles_freqs, gtile_ids, gtile_f,
+                                       blkperm, layout, num_docs, weights, den_blocks,
+                                       tile_gblk0, out_rows)
+    if words.device.type != "cuda":
+        raise ValueError(f"split_decode_part runs on cuda or cpu, not {words.device}")
+    return _split_decode_launches(words, tiles_docs, tiles_freqs, gtile_ids, gtile_f, blkperm,
+                                  layout, num_docs, weights, den_blocks, tile_gblk0, out_rows)
+
+
+def _split_decode_launches(words, tiles_docs, tiles_freqs, gtile_ids, gtile_f, blkperm, layout,
+                           num_docs, weights, den_blocks, tile_gblk0, out_rows):
+    """split_decode_part's launches through the kernels' wrappers."""
+    if weights not in (None, "presence", "bm25"):
+        raise ValueError(f"weights must be None, 'presence' or 'bm25', got {weights!r}")
+    dev = words.device
+    rows = max(out_rows or layout.nb_d, layout.nb_d)
+    docs32 = torch.empty((rows, BLOCK), dtype=torch.int32, device=dev)
+    w32 = None if weights is None else torch.empty((rows, BLOCK), dtype=torch.float32, device=dev)
+    if rows > layout.nb_d:
+        docs32[layout.nb_d:].fill_(num_docs)
+        if w32 is not None:
+            w32[layout.nb_d:].zero_()
+    freq = None
+    if weights == "bm25":
+        freq = torch.empty((layout.nb_f, BLOCK), dtype=torch.int32, device=dev)
+        for kernel in KERNELS:
+            launch = layout.launch(kernel, False, dev)
+            if launch.n_cta:
+                WRAPPERS[kernel](launch, words, tiles_freqs, gtile_f, "freqs", num_docs, freq)
+    mode = "docs" if weights is None else weights
+    for kernel in KERNELS:
+        launch = layout.launch(kernel, True, dev)
+        if launch.n_cta:
+            WRAPPERS[kernel](launch, words, tiles_docs, gtile_ids, mode, num_docs, docs32, w32,
+                             freq, blkperm, den_blocks, tile_gblk0)
+    return docs32, w32

@@ -1,9 +1,8 @@
-"""Host copy of ds2i_tpu/ops/segments.py (numpy only).
+"""The port's copy of ds2i_tpu/ops/segments.py (numpy only), over the
+port's own sequences.
 
-Importing the original runs ds2i_tpu/ops/__init__.py, which loads JAX;
-the port must load without JAX, so it carries this copy. ROADMAP item
-14 (lazy ds2i_tpu package __init__s) removes it. tests/test_torch_tiles.py
-pins the copy to the original.
+The port imports nothing of the JAX package, so it carries this copy;
+tests/test_torch_tiles.py pins it to the original.
 
 Host-side segment tables: the bridge from bit-packed lists to batched
 device decode.
@@ -36,7 +35,7 @@ from typing import List
 
 import numpy as np
 
-from ds2i_tpu.sequences.ef import (
+from ..sequences.ef import (
     AllOnesSequence,
     CompactEliasFano,
     CompactRankedBitvector,
@@ -44,8 +43,8 @@ from ds2i_tpu.sequences.ef import (
     RBOffsets,
     StrictEliasFano,
 )
-from ds2i_tpu.sequences.partitioned import _PartitionedBase
-from ds2i_tpu.sequences.selectors import (
+from ..sequences.partitioned import _PartitionedBase
+from ..sequences.selectors import (
     ALL_ONES,
     ELIAS_FANO,
     RANKED_BITVECTOR,

@@ -1,6 +1,7 @@
 """ds2i_torch.engine.ResidentEngine in split mode (device="cpu", the plain
 PyTorch path) over block_optpfor and block_interpolative indexes, against
-the JAX ResidentEngine and the numpy oracle: tables, statics, plan arrays
+the JAX ResidentEngine and the numpy oracle, each engine over an index
+built by its own package from one collection: tables, statics, plan arrays
 and the norm cache exactly, decoded lists and boolean counts exactly,
 top-10 BM25 scores within rtol 1e-3 (the f16 download rounds at 2^-11,
 and XLA's f32 divide is not IEEE)."""
@@ -9,19 +10,20 @@ import numpy as np
 import pytest
 import torch
 
-from ds2i_tpu import GlobalParameters
 from ds2i_tpu.engine import ResidentEngine as JaxResidentEngine
 from ds2i_tpu.index.hybrid import rebuild_mixed
-from ds2i_tpu.index.types import make_index_type
-from ds2i_tpu.io import BinaryFreqCollection, generate_collection, read_sizes
-from ds2i_tpu.queries import (
-    WandData, and_query, or_query, ranked_and_query, ranked_or_query, read_queries,
-)
+from ds2i_tpu.io import generate_collection
+from ds2i_tpu.queries import and_query, or_query, ranked_and_query, ranked_or_query, read_queries
 
+from ds2i_torch.codecs.mixed import MixedBlock as PortMixedBlock
 from ds2i_torch.engine import ResidentEngine, resident_state_from_arrays
 from ds2i_torch.engine.tiles import F_NVALS
+from ds2i_torch.host import BinaryFreqCollection as PortCollection
+from ds2i_torch.host import GlobalParameters as PortParams
+from ds2i_torch.host import make_index_type as port_index_type
 from ds2i_torch.ops.block_decode import block_stream_torch
 
+from test_torch_host_copy import assert_same_walk, build_index, build_wdata
 from test_torch_resident import _assert_topk_close, _plan_arrays
 
 NQ = 24  # queries per check
@@ -36,24 +38,17 @@ def coll(tmp_path_factory):
     return base
 
 
-def _build(coll, name):
-    c = BinaryFreqCollection(coll)
-    b = make_index_type(name).builder(c.num_docs, GlobalParameters())
-    for docs, freqs in c:
-        b.add_posting_list(len(docs), docs, freqs, int(np.asarray(freqs).sum()))
-    return b.build()
-
-
 @pytest.fixture(scope="module")
 def setup(coll):
-    """name -> (index, wdata, port engine, JAX engine)."""
-    c = BinaryFreqCollection(coll)
-    wdata = WandData.build(read_sizes(coll), c)
+    """name -> (index, wdata, port engine, JAX engine, port index): each
+    engine over an index of its own package, both on the same walk."""
+    assert_same_walk()
+    wdata, port_wdata = build_wdata(coll, "ref"), build_wdata(coll, "port")
     out = {}
     for name in BLOCK_TYPES:
-        index = _build(coll, name)
-        out[name] = (index, wdata, ResidentEngine(index, wdata, device="cpu"),
-                     JaxResidentEngine(index, wdata))
+        index, port_index = build_index(coll, name, "ref"), build_index(coll, name, "port")
+        out[name] = (index, wdata, ResidentEngine(port_index, port_wdata, device="cpu"),
+                     JaxResidentEngine(index, wdata), port_index)
     return out
 
 
@@ -67,7 +62,7 @@ def test_tables_and_words_match_jax(setup, name):
     """Per-stream statics (exception groups remapped to "optp"), gids, the
     field tables with BF_EX_BASE filled, and the one resident word stream
     (index bytes + patch pairs), uploaded once."""
-    _, _, port, ref = setup[name]
+    _, _, port, ref, _ = setup[name]
     assert port.split and ref.split
     assert port.group_statics_d == ref.group_statics_d
     assert port.group_statics_f == ref.group_statics_f
@@ -88,7 +83,7 @@ def test_tables_and_words_match_jax(setup, name):
 def test_every_tile_decodes_as_the_host(setup, name):
     """block_stream_torch over every group of both streams equals
     index.decode_list on every list, and writes the pads."""
-    index, _, port, _ = setup[name]
+    index, _, port, _, _ = setup[name]
     s, nt = port.state, port.pad_tile
     nvals = port.tiles.docs[:, F_NVALS]
     decoded = {}
@@ -123,10 +118,10 @@ def test_every_tile_decodes_as_the_host(setup, name):
 def test_plan_arrays_match_jax(coll, setup, name, ops):
     """Small part budgets force several parts; every plan array equals the
     JAX engine's, gtile_f, blkperm and groups_f included."""
-    index, wdata, _, _ = setup[name]
+    index, wdata, _, _, port_index = setup[name]
     qs = read_queries(coll + ".queries")
     kw = dict(max_part_slots=1 << 13, max_part_queries=32)
-    port = ResidentEngine(index, wdata, device="cpu", **kw)
+    port = ResidentEngine(port_index, build_wdata(coll, "port"), device="cpu", **kw)
     ref = JaxResidentEngine(index, wdata, **kw)
     ranked = ops != ("counts",)
     got = port.prepare(qs, k=10, ops=ops, ranked=ranked)
@@ -138,7 +133,7 @@ def test_plan_arrays_match_jax(coll, setup, name, ops):
 
 @pytest.mark.parametrize("name", BLOCK_TYPES)
 def test_norm_cache_matches_jax(setup, name):
-    _, _, port, ref = setup[name]
+    _, _, port, ref, _ = setup[name]
     port._ensure_norm_cache()
     ref._ensure_norm_cache()
     np.testing.assert_array_equal(port.state.den_blocks.numpy(), np.asarray(ref.den_blocks))
@@ -147,7 +142,7 @@ def test_norm_cache_matches_jax(setup, name):
 
 @pytest.mark.parametrize("name", BLOCK_TYPES)
 def test_counts_match_jax_and_oracle(setup, queries, name):
-    index, _, port, ref = setup[name]
+    index, _, port, ref, _ = setup[name]
     got_and, got_or = port.and_counts(queries), port.or_counts(queries)
     np.testing.assert_array_equal(got_and, ref.and_counts(queries))
     np.testing.assert_array_equal(got_or, ref.or_counts(queries))
@@ -158,7 +153,7 @@ def test_counts_match_jax_and_oracle(setup, queries, name):
 
 @pytest.mark.parametrize("name", BLOCK_TYPES)
 def test_ranked_match_jax_and_oracle(setup, queries, name):
-    index, wdata, port, ref = setup[name]
+    index, wdata, port, ref, _ = setup[name]
     got_and, got_or = port.ranked_and(queries, k=10), port.ranked_or(queries, k=10)
     _assert_topk_close(got_and, ref.ranked_and(queries, k=10), queries)
     _assert_topk_close(got_or, ref.ranked_or(queries, k=10), queries)
@@ -170,7 +165,7 @@ def test_from_state_over_block_index(setup, queries):
     """An engine over the JAX engine's resident arrays (its one word
     stream given for both fields, norm cache included) serves the same
     results."""
-    index, _, port, ref = setup["block_optpfor"]
+    _, _, port, ref, port_index = setup["block_optpfor"]
     ref._ensure_norm_cache()
     words = np.asarray(ref.docs_words)
     state = resident_state_from_arrays(
@@ -179,29 +174,48 @@ def test_from_state_over_block_index(setup, queries):
         tile_gblk0=np.asarray(ref.tile_gblk0), device="cpu",
     )
     assert state.freqs_words is state.docs_words
-    eng = ResidentEngine.from_state(index, state)
+    eng = ResidentEngine.from_state(port_index, state)
     assert eng.ranked_and(queries) == port.ranked_and(queries)
     assert eng.ranked_or(queries) == port.ranked_or(queries)
     np.testing.assert_array_equal(eng.or_counts(queries), port.or_counts(queries))
     with pytest.raises(ValueError, match="does not belong"):
-        ResidentEngine.from_state(setup["block_interpolative"][0], state)
+        ResidentEngine.from_state(setup["block_interpolative"][4], state)
 
 
 @pytest.mark.parametrize("name", ["block_varint", "block_qmx", "block_mixed"])
-def test_other_block_codecs_raise(coll, name):
-    c = BinaryFreqCollection(coll)
-    b = make_index_type("block_optpfor" if name == "block_mixed" else name).builder(
-        c.num_docs, GlobalParameters())
+def test_other_block_codecs_raise(coll, name, monkeypatch):
+    """The port's own varint and QMX indexes raise; a mixed index comes
+    only from the reference's transformation (index/hybrid.py, which the
+    port does not carry), so a port block_optpfor index given the port's
+    MixedBlock codec stands in for one, and raises alike."""
+    c = PortCollection(coll)
+    b = port_index_type("block_optpfor" if name == "block_mixed" else name).builder(
+        c.num_docs, PortParams())
     for i, (docs, freqs) in enumerate(c):
         b.add_posting_list(len(docs), docs, freqs, int(np.asarray(freqs).sum()))
         if i == 50:
             break
     index = b.build()
     if name == "block_mixed":
-        # mixed indexes come only from a transformation (per-block codecs)
+        monkeypatch.setattr(index, "codec", PortMixedBlock)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        ResidentEngine(index, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["opt", "block_optpfor", "block_mixed"])
+def test_foreign_index_raises(setup, coll, name):
+    """An index built by ds2i_tpu, whatever its type, is refused with its
+    own message: the port's engine serves only its own package's indexes."""
+    if name == "block_mixed":
+        index = setup["block_optpfor"][0]
         nb = sum(len(index.get_blocks(li)) for li in range(index.size()))
         index = rebuild_mixed(index, np.zeros(2 * nb, np.uint8), np.full(2 * nb, 10, np.uint8))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    elif name == "opt":
+        index = build_index(coll, name, "ref")
+    else:
+        index = setup[name][0]
+    assert type(index).__module__.startswith("ds2i_tpu.")
+    with pytest.raises(TypeError, match="serves indexes built by ds2i_torch"):
         ResidentEngine(index, device="cpu")
 
 
@@ -209,6 +223,6 @@ def test_no_card_is_an_error(setup, monkeypatch):
     """device=None means CUDA: without a card the engine raises, never
     serving from the CPU in its place."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    index, wdata, _, _ = setup["block_optpfor"]
+    _, _, _, _, port_index = setup["block_optpfor"]
     with pytest.raises(RuntimeError, match="CUDA"):
-        ResidentEngine(index, wdata)
+        ResidentEngine(port_index)

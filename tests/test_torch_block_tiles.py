@@ -1,17 +1,20 @@
-"""The port's host copy ds2i_torch.engine.block_tiles must build exactly
-the JAX package's block tile tables, group statics, gids and exception
-patch words, through the native walk and through the Python walk."""
+"""The port's host copy ds2i_torch.engine.block_tiles, over the port's
+own index, must build exactly the JAX package's block tile tables, group
+statics, gids and exception patch words over the JAX package's index of
+the same collection, through the native walk and through the Python
+walk."""
 
 import numpy as np
 import pytest
 
 import ds2i_tpu.engine.block_tiles as jax_bt
 import ds2i_tpu.native as native
-from ds2i_tpu import GlobalParameters
-from ds2i_tpu.index.types import make_index_type
-from ds2i_tpu.io import BinaryFreqCollection, generate_collection
+from ds2i_tpu.io import generate_collection
 
 import ds2i_torch.engine.block_tiles as torch_bt
+import ds2i_torch.native as port_native
+
+from test_torch_host_copy import assert_same_walk, build_index
 
 _TABLE_FIELDS = ("docs", "freqs", "tile_list", "list_tile_start", "win_words", "lb_words")
 
@@ -26,14 +29,10 @@ def coll(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def indexes(coll):
-    c = BinaryFreqCollection(coll)
-    out = {}
-    for name in ("block_optpfor", "block_interpolative"):
-        b = make_index_type(name).builder(c.num_docs, GlobalParameters())
-        for docs, freqs in c:
-            b.add_posting_list(len(docs), docs, freqs, int(np.asarray(freqs).sum()))
-        out[name] = b.build()
-    return out
+    """name -> (JAX package's index, the port's index)."""
+    assert_same_walk()
+    return {name: (build_index(coll, name, "ref"), build_index(coll, name, "port"))
+            for name in ("block_optpfor", "block_interpolative")}
 
 
 def _words(index):
@@ -65,9 +64,10 @@ def test_block_tables_match_jax(indexes, name, walk, monkeypatch):
     """Tables, statics and gids; the Python walk is taken in both packages
     when the native builder is unavailable."""
     if walk == "python":
-        monkeypatch.setattr(native, "block_tables_native", lambda *a, **k: None)
-    index = indexes[name]
-    got, exp = torch_bt.build_block_tables(index), jax_bt.build_block_tables(index)
+        for mod in (native, port_native):
+            monkeypatch.setattr(mod, "block_tables_native", lambda *a, **k: None)
+    ref, port = indexes[name]
+    got, exp = torch_bt.build_block_tables(port), jax_bt.build_block_tables(ref)
     _assert_built_equal(got, exp)
     kinds = {s[0] for s in got[1] + got[3]}
     assert kinds == ({"opt", "interp"} if name == "block_optpfor" else {"interp"})
@@ -76,12 +76,12 @@ def test_block_tables_match_jax(indexes, name, walk, monkeypatch):
 @pytest.mark.parametrize("walk", ["native", "python"])
 def test_exception_patches_match_jax(indexes, walk, monkeypatch):
     if walk == "python":
-        monkeypatch.setattr(native, "s16_exception_patches_native", lambda *a, **k: None)
-    index = indexes["block_optpfor"]
-    t = jax_bt.build_block_tables(index)[0]
-    words = _words(index)
-    got_patch, got_bases = torch_bt.build_exception_patches(words, [t.docs, t.freqs])
-    exp_patch, exp_bases = jax_bt.build_exception_patches(words, [t.docs, t.freqs])
+        for mod in (native, port_native):
+            monkeypatch.setattr(mod, "s16_exception_patches_native", lambda *a, **k: None)
+    ref, port = indexes["block_optpfor"]
+    t, pt = jax_bt.build_block_tables(ref)[0], torch_bt.build_block_tables(port)[0]
+    got_patch, got_bases = torch_bt.build_exception_patches(_words(port), [pt.docs, pt.freqs])
+    exp_patch, exp_bases = jax_bt.build_exception_patches(_words(ref), [t.docs, t.freqs])
     assert got_patch.dtype == exp_patch.dtype
     assert len(got_patch) > 0
     np.testing.assert_array_equal(got_patch, exp_patch)

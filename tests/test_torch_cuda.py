@@ -1,6 +1,7 @@
-"""The port on the card: each CUDA kernel (pair decode, OptPFor and
-interpolative block decode) against its plain PyTorch version, and
-ResidentEngine on CUDA against the same engine on the CPU.
+"""The port on the card: each CUDA kernel (pair decode, and the
+part-level OptPFor and interpolative block decode, launch by launch and
+as a whole part) against its plain PyTorch version, and ResidentEngine
+on CUDA against the same engine on the CPU.
 
 Every test here is marked `cuda` and skips where torch.cuda.is_available()
 is False. The card's machine has no jax, so run them there without the
@@ -19,7 +20,10 @@ from ds2i_torch.host import (
     make_index_type, read_queries, read_sizes,
 )
 from ds2i_torch.ops import block_decode, pair_decode
-from ds2i_torch.ops.block_decode import block_stream_torch, interp_decode, optpfor_decode
+from ds2i_torch.ops.block_decode import (
+    KERNELS, SplitLayout, decode_launch_torch, interp_decode, optpfor_decode, split_decode_part,
+    split_decode_part_torch,
+)
 from ds2i_torch.ops.pair_decode import decode_pair, decode_pair_torch
 
 pytestmark = pytest.mark.cuda
@@ -84,38 +88,107 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda, coll):
 
 @pytest.mark.parametrize("name", ["block_optpfor", "block_interpolative"])
 def test_block_kernels_match_plain_on_every_group(cuda, coll, name):
-    """Both streams of every split-mode group through its kernel and
-    through block_stream_torch on the card, bit for bit; one counted
-    launch per call, on the kernel the statics name."""
+    """Each kernel's one launch per stream over every tile, in each mode
+    the engine uses (freqs; docs with BM25 weights; docs alone, for the
+    norm cache; docs with presence flags), against decode_launch_torch on
+    the card, bit for bit; one counted launch per call."""
     eng = ResidentEngine(build(coll, name), device=cuda)
-    s = eng.state
-    for gid, stats, table, is_docs in (
-        (eng.tile_gid_d, eng.group_statics_d, s.tiles_docs, True),
-        (eng.tile_gid_f, eng.group_statics_f, s.tiles_freqs, False),
-    ):
-        groups, gids, _, _, _ = eng._order_groups(np.arange(eng.pad_tile), gid, stats)
-        ids_all = torch.from_numpy(gids.astype(np.int64)).to(cuda)
-        for off, R, st in groups:
-            fld = table[ids_all[off:off + R]]
-            wrapper = interp_decode if st[0] == "interp" else optpfor_decode
-            before = wrapper.launches
-            got = block_decode.block_stream(s.docs_words, fld, st, eng.num_docs, is_docs)
-            torch.cuda.synchronize()
-            assert wrapper.launches == before + 1
-            ref = block_stream_torch(s.docs_words, fld, st, eng.num_docs, is_docs)
-            torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    eng._ensure_norm_cache()
+    s, nd = eng.state, eng.num_docs
+    gt, gf, bp, lay = eng.all_tiles_part()[:4]
+    freq = torch.empty((lay.nb_f, 32), dtype=torch.int32, device=cuda)
+    for kernel in KERNELS:  # the freqs buffer the weighted docs launches read
+        block_decode.WRAPPERS[kernel](lay.launch(kernel, False, cuda), s.docs_words,
+                                      s.tiles_freqs, gf, "freqs", nd, freq)
+    for kernel in KERNELS:
+        wrapper = block_decode.WRAPPERS[kernel]
+        for mode in ("freqs", "bm25", "docs", "presence"):
+            is_docs = mode != "freqs"
+            launch = lay.launch(kernel, is_docs, cuda)
+            if not launch.n_cta:
+                continue
+            table, gtile = (s.tiles_docs, gt) if is_docs else (s.tiles_freqs, gf)
+            nb = lay.nb_d if is_docs else lay.nb_f
+            outs = []
+            for fn in (wrapper, decode_launch_torch):
+                out = torch.full((nb, 32), -7, dtype=torch.int32, device=cuda)
+                w = torch.full((nb, 32), -7.0, device=cuda) if mode in ("bm25", "presence") else None
+                if fn is wrapper:
+                    before = wrapper.launches
+                    fn(launch, s.docs_words, table, gtile, mode, nd, out, w, freq, bp,
+                       s.den_blocks, s.tile_gblk0)
+                    torch.cuda.synchronize()
+                    assert wrapper.launches == before + 1
+                else:
+                    fn(launch, s.docs_words, table, gtile, mode, nd, out, w, freq, bp,
+                       s.den_blocks, s.tile_gblk0)
+                outs.append((out, w))
+            (go, gw), (po, pw) = outs
+            torch.testing.assert_close(go, po, rtol=0, atol=0)
+            if gw is not None:
+                torch.testing.assert_close(gw, pw, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("weights", ["bm25", "presence", None])
+@pytest.mark.parametrize("name", ["block_optpfor", "block_interpolative"])
+def test_part_decode_matches_plain_on_every_part(cuda, coll, name, weights):
+    """split_decode_part on the card against split_decode_part_torch on
+    the card, bit for bit, on every part of a several-part plan and over
+    all tiles; at most one launch per kernel and stream, freqs only for
+    BM25 weights (None is the norm cache's docs-only decode)."""
+    eng = ResidentEngine(build(coll, name), device=cuda, max_part_slots=1 << 13,
+                         max_part_queries=32)
+    eng._ensure_norm_cache()
+    s, nd = eng.state, eng.num_docs
+    plan = eng.prepare(read_queries(coll + ".queries"), k=10, ops=("and",))
+    assert len(plan["plans"]) > 1
+    put = lambda a: torch.from_numpy(np.asarray(a).astype(np.int64)).to(cuda)  # noqa: E731
+    parts = [(put(p["gtile_ids"]), put(p["gtile_f"]), put(p["blkperm"]), p["split"])
+             for p in plan["plans"]]
+    for gt, gf, bp, lay in parts + [eng.all_tiles_part()[:4]]:
+        rows = 1 << max(lay.nb_d - 1, 0).bit_length()
+        args = (s.docs_words, s.tiles_docs, s.tiles_freqs, gt, gf, bp, lay, nd, weights,
+                s.den_blocks, s.tile_gblk0, rows)
+        before = (optpfor_decode.launches, interp_decode.launches)
+        got = split_decode_part(*args)
+        torch.cuda.synchronize()
+        n1, n2 = optpfor_decode.launches - before[0], interp_decode.launches - before[1]
+        streams = 2 if weights == "bm25" else 1
+        assert 1 <= n2 <= streams and n1 <= streams
+        assert (n1 > 0) == (name == "block_optpfor")
+        exp = split_decode_part_torch(*args)
+        torch.testing.assert_close(got[0], exp[0], rtol=0, atol=0)
+        if weights is None:
+            assert got[1] is None and exp[1] is None
+        else:
+            torch.testing.assert_close(got[1], exp[1], rtol=0, atol=0)
 
 
 def test_block_wrappers_reject_what_the_kernels_do_not_take(cuda, coll):
     eng = ResidentEngine(build(coll, "block_optpfor"), device=cuda)
-    s = eng.state
-    fld = s.tiles_docs[:8]
+    s, nd = eng.state, eng.num_docs
+    gt, gf, bp, lay = eng.all_tiles_part()[:4]
+    launch = lay.launch("optpfor", True, cuda)
+    out = torch.empty((lay.nb_d, 32), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="int32"):
-        optpfor_decode(s.docs_words.long(), fld, ("optp", 5, 4, 128), eng.num_docs, True)
-    with pytest.raises(ValueError, match="E="):
-        optpfor_decode(s.docs_words, fld, ("opt", 5, 4, 128), eng.num_docs, True)
+        optpfor_decode(launch, s.docs_words.long(), s.tiles_docs, gt, "docs", nd, out)
+    with pytest.raises(ValueError, match="int64"):
+        optpfor_decode(launch, s.docs_words, s.tiles_docs, gt.int(), "docs", nd, out)
+    with pytest.raises(ValueError, match="CTA table of the optpfor"):
+        interp_decode(launch, s.docs_words, s.tiles_docs, gt, "docs", nd, out)
+    with pytest.raises(ValueError, match="mode"):
+        optpfor_decode(launch, s.docs_words, s.tiles_docs, gt, "weights", nd, out)
+    with pytest.raises(ValueError, match="w must be given"):
+        optpfor_decode(launch, s.docs_words, s.tiles_docs, gt, "presence", nd, out)
+    with pytest.raises(ValueError, match="CTA table lies on"):
+        optpfor_decode(lay.launch("optpfor", True, "cpu"), s.docs_words, s.tiles_docs, gt,
+                       "docs", nd, out)
+    with pytest.raises(ValueError, match="optpfor_decode takes"):
+        SplitLayout(((0, 8, ("optp", 5, 3, 128)),))
+    with pytest.raises(NotImplementedError, match="Simple16"):
+        SplitLayout(((0, 8, ("opt", 5, 4, 128)),))
     with pytest.raises(ValueError, match="interp_decode takes"):
-        interp_decode(s.docs_words, fld, ("interp", 5, 32), eng.num_docs, True)
+        SplitLayout(((0, 8, ("interp", 5, 32)),))
 
 
 @pytest.mark.parametrize("name", ["ef", "opt", "block_optpfor", "block_interpolative"])

@@ -1,21 +1,32 @@
-"""ds2i_torch runs where jax is absent: in a fresh interpreter whose
-import system refuses every jax module, import the port, serve a CPU
-ranked_and over an `opt` index (pair mode) and a `block_optpfor` index
-(split mode) against the numpy oracle, and check no jax module loaded."""
+"""ds2i_torch runs where neither jax nor the JAX package is present: in a
+fresh interpreter whose import system refuses every jax and ds2i_tpu
+module, import the port, serve a CPU ranked_and over an `opt` index
+(pair mode) and a `block_optpfor` index (split mode) against the numpy
+oracle, and check neither loaded. Each module a caller may import first
+loads in a fresh interpreter (no import cycle breaks it). And no file of
+the port, nor chip_smoke.py, names ds2i_tpu in an import."""
 
+import ast
 import os
 import subprocess
 import sys
 import textwrap
+
+import pytest
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SCRIPT = textwrap.dedent("""
     import sys
 
+    BLOCKED = ("jax", "jaxlib", "ds2i_tpu")
+
+    def blocked(name):
+        return name.split(".")[0] in BLOCKED
+
     class _NoJax:
         def find_spec(self, name, path=None, target=None):
-            if name == "jax" or name.startswith(("jax.", "jaxlib")):
+            if blocked(name):
                 raise ImportError(f"{name} is blocked in this process")
             return None
 
@@ -55,7 +66,7 @@ _SCRIPT = textwrap.dedent("""
             assert len(g) == len(e), (name, q)
             if e:
                 np.testing.assert_allclose(g, e, rtol=1e-3)
-    loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+    loaded = sorted(m for m in sys.modules if blocked(m))
     assert not loaded, loaded
     print("NOJAX_OK", len(queries))
 """)
@@ -70,3 +81,49 @@ def test_port_imports_and_serves_without_jax(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "NOJAX_OK" in proc.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "ds2i_torch.kernels", "ds2i_torch.ops.block_decode", "ds2i_torch.ops.pair_decode",
+    "ds2i_torch.engine", "ds2i_torch.engine.block_tiles", "ds2i_torch.host",
+])
+def test_module_imports_first(tmp_path, module):
+    """chip_smoke.py imports ds2i_torch.kernels, then ds2i_torch.ops: each
+    entry module must load as the first of the port in a process."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", f"import {module}"], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+
+
+def _names_ds2i_tpu(path):
+    """(line, text) of every import of ds2i_tpu in the file at `path`:
+    import / from-import statements, and importlib or __import__ calls
+    whose string argument names it."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    hit = lambda name: bool(name) and name.split(".")[0] == "ds2i_tpu"  # noqa: E731
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found += [(node.lineno, a.name) for a in node.names if hit(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and hit(node.module):
+            found.append((node.lineno, node.module))
+        elif isinstance(node, ast.Call):
+            fn = node.func
+            fname = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
+            if fname in ("import_module", "__import__", "find_spec", "reload"):
+                for arg in node.args:
+                    if isinstance(arg, ast.Constant) and isinstance(arg.value, str) and hit(arg.value):
+                        found.append((node.lineno, arg.value))
+    return found
+
+
+def test_no_file_of_the_port_imports_the_jax_package():
+    files = [os.path.join(_REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(_REPO, "ds2i_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 40
+    bad = {os.path.relpath(f, _REPO): hits for f in files if (hits := _names_ds2i_tpu(f))}
+    assert not bad, bad

@@ -10,10 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from ds2i_tpu import GlobalParameters
 from ds2i_tpu.engine import resident as jax_resident
-from ds2i_tpu.index.types import make_index_type
-from ds2i_tpu.io import BinaryFreqCollection, generate_collection
+from ds2i_tpu.io import generate_collection
 from ds2i_tpu.ops import pallas_decode
 
 from ds2i_torch.engine import ResidentEngine
@@ -24,6 +22,8 @@ from ds2i_torch.engine.tiles import (
 from ds2i_torch.ops import pair_decode
 from ds2i_torch.ops.pair_decode import decode_pair, decode_pair_torch, popcount32
 from ds2i_torch.ops.segments import SEG_AO, SEG_EF, SEG_EF_STRICT, SEG_RB
+
+from test_torch_host_copy import build_index
 
 _jax_pair_blocks = jax.jit(
     jax_resident._decode_pair_blocks, static_argnames=("st", "R", "num_docs"))
@@ -44,11 +44,9 @@ def coll(tmp_path_factory):
 
 
 def build(coll_base, name):
-    c = BinaryFreqCollection(coll_base)
-    b = make_index_type(name).builder(c.num_docs, GlobalParameters())
-    for docs, freqs in c:
-        b.add_posting_list(len(docs), docs, freqs, int(np.asarray(freqs).sum()))
-    return b.build()
+    """The port's own index (its words equal the JAX package's:
+    test_torch_host_copy.py)."""
+    return build_index(coll_base, name, "port")
 
 
 def _words(index, pad=True):

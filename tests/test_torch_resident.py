@@ -1,5 +1,6 @@
 """ds2i_torch.engine.ResidentEngine (device="cpu", the plain PyTorch
-path) against the JAX ResidentEngine and the numpy oracle: plan arrays
+path) against the JAX ResidentEngine and the numpy oracle, each engine
+over an index built by its own package from one collection: plan arrays
 and the norm cache exactly, boolean counts exactly, top-10 BM25 scores
 within rtol 1e-3 (the f16 download rounds at 2^-11, and XLA's f32 divide
 is not IEEE)."""
@@ -7,15 +8,17 @@ is not IEEE)."""
 import numpy as np
 import pytest
 
-from ds2i_tpu import GlobalParameters
 from ds2i_tpu.engine import ResidentEngine as JaxResidentEngine
-from ds2i_tpu.index.types import make_index_type
-from ds2i_tpu.io import BinaryFreqCollection, generate_collection, read_sizes
-from ds2i_tpu.queries import (
-    WandData, and_query, or_query, ranked_and_query, ranked_or_query, read_queries,
-)
+from ds2i_tpu.io import generate_collection
+from ds2i_tpu.queries import and_query, or_query, ranked_and_query, ranked_or_query, read_queries
+
+from ds2i_torch.host import BinaryFreqCollection as PortCollection
+from ds2i_torch.host import GlobalParameters as PortParams
+from ds2i_torch.host import make_index_type as port_index_type
 
 from ds2i_torch.engine import ResidentEngine, resident_state_from_arrays
+
+from test_torch_host_copy import assert_same_walk, build_index, build_wdata
 
 NQ = 24  # queries per check; the JAX interpret-mode engine compiles per layout
 
@@ -30,17 +33,14 @@ def coll(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def setup(coll):
-    """name -> (index, wdata, port engine, JAX pallas-interpret engine)."""
-    c = BinaryFreqCollection(coll)
-    wdata = WandData.build(read_sizes(coll), c)
+    """name -> (index, wdata, port engine, JAX pallas-interpret engine,
+    port index): each engine over an index of its own package."""
+    wdata, port_wdata = build_wdata(coll, "ref"), build_wdata(coll, "port")
     out = {}
     for name in ("ef", "opt"):
-        b = make_index_type(name).builder(c.num_docs, GlobalParameters())
-        for docs, freqs in c:
-            b.add_posting_list(len(docs), docs, freqs, int(np.asarray(freqs).sum()))
-        index = b.build()
-        out[name] = (index, wdata, ResidentEngine(index, wdata, device="cpu"),
-                     JaxResidentEngine(index, wdata, pallas=2))
+        index, port_index = build_index(coll, name, "ref"), build_index(coll, name, "port")
+        out[name] = (index, wdata, ResidentEngine(port_index, port_wdata, device="cpu"),
+                     JaxResidentEngine(index, wdata, pallas=2), port_index)
     return out
 
 
@@ -69,16 +69,12 @@ def _plan_arrays(plan):
 def test_plan_arrays_match_jax(coll, ops):
     """Small part budgets force several parts; every plan array equals the
     JAX engine's (both engines are built with the same budgets)."""
-    c = BinaryFreqCollection(coll)
-    wdata = WandData.build(read_sizes(coll), c)
-    b = make_index_type("opt").builder(c.num_docs, GlobalParameters())
-    for docs, freqs in c:
-        b.add_posting_list(len(docs), docs, freqs, int(np.asarray(freqs).sum()))
-    index = b.build()
+    assert_same_walk()
     qs = read_queries(coll + ".queries")
     kw = dict(max_part_slots=1 << 13, max_part_queries=32)
-    port = ResidentEngine(index, wdata, device="cpu", **kw)
-    ref = JaxResidentEngine(index, wdata, **kw)
+    port = ResidentEngine(build_index(coll, "opt", "port"), build_wdata(coll, "port"),
+                          device="cpu", **kw)
+    ref = JaxResidentEngine(build_index(coll, "opt", "ref"), build_wdata(coll, "ref"), **kw)
     ranked = ops != ("counts",)
     got = port.prepare(qs, k=10, ops=ops, ranked=ranked)
     exp = ref.prepare(qs, k=10, ops=ops, ranked=ranked)
@@ -88,7 +84,7 @@ def test_plan_arrays_match_jax(coll, ops):
 
 @pytest.mark.parametrize("name", ["ef", "opt"])
 def test_norm_cache_matches_jax(setup, name):
-    _, _, port, ref = setup[name]
+    _, _, port, ref, _ = setup[name]
     port._ensure_norm_cache()
     ref._ensure_norm_cache()
     np.testing.assert_array_equal(port.state.den_blocks.numpy(), np.asarray(ref.den_blocks))
@@ -97,7 +93,7 @@ def test_norm_cache_matches_jax(setup, name):
 
 @pytest.mark.parametrize("name", ["ef", "opt"])
 def test_counts_match_jax_and_oracle(setup, queries, name):
-    index, _, port, ref = setup[name]
+    index, _, port, ref, _ = setup[name]
     got_and, got_or = port.and_counts(queries), port.or_counts(queries)
     np.testing.assert_array_equal(got_and, ref.and_counts(queries))
     np.testing.assert_array_equal(got_or, ref.or_counts(queries))
@@ -115,7 +111,7 @@ def _assert_topk_close(got, exp, queries):
 
 @pytest.mark.parametrize("name", ["ef", "opt"])
 def test_ranked_match_jax_and_oracle(setup, queries, name):
-    index, wdata, port, ref = setup[name]
+    index, wdata, port, ref, _ = setup[name]
     got_and, got_or = port.ranked_and(queries, k=10), port.ranked_or(queries, k=10)
     _assert_topk_close(got_and, ref.ranked_and(queries, k=10), queries)
     _assert_topk_close(got_or, ref.ranked_or(queries, k=10), queries)
@@ -126,7 +122,7 @@ def test_ranked_match_jax_and_oracle(setup, queries, name):
 def test_from_state_of_jax_arrays(setup, queries):
     """An engine over the JAX engine's resident arrays (read back as
     numpy, norm cache included) serves the same results."""
-    index, wdata, port, ref = setup["opt"]
+    _, _, port, ref, port_index = setup["opt"]
     ref._ensure_norm_cache()
     state = resident_state_from_arrays(
         np.asarray(ref.docs_words), np.asarray(ref.freqs_words),
@@ -134,18 +130,18 @@ def test_from_state_of_jax_arrays(setup, queries):
         np.asarray(ref.norm_den), den_blocks=np.asarray(ref.den_blocks),
         tile_gblk0=np.asarray(ref.tile_gblk0), device="cpu",
     )
-    eng = ResidentEngine.from_state(index, state)
+    eng = ResidentEngine.from_state(port_index, state)
     assert eng.ranked_and(queries) == port.ranked_and(queries)
     assert eng.ranked_or(queries) == port.ranked_or(queries)
     np.testing.assert_array_equal(eng.and_counts(queries), port.and_counts(queries))
-    other = setup["ef"][0]
+    other = setup["ef"][4]
     with pytest.raises(ValueError, match="does not belong"):
         ResidentEngine.from_state(other, state)
 
 
 @pytest.mark.parametrize("name", ["ef", "opt"])
 def test_duplicate_terms(setup, name):
-    index, wdata, port, ref = setup[name]
+    index, wdata, port, ref, _ = setup[name]
     (got,) = port.ranked_or([[5, 5]], k=10)
     exp = ranked_or_query(index, wdata, [5, 5], k=10)
     np.testing.assert_allclose(got, exp, rtol=1e-3)
@@ -154,11 +150,11 @@ def test_duplicate_terms(setup, name):
 
 
 def test_unported_paths_raise(coll, setup, queries):
-    _, _, port, _ = setup["opt"]
+    _, _, port, _, _ = setup["opt"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.prepare(queries, ops=("and",), prune=True)
-    c = BinaryFreqCollection(coll)
-    b = make_index_type("block_varint").builder(c.num_docs, GlobalParameters())
+    c = PortCollection(coll)
+    b = port_index_type("block_varint").builder(c.num_docs, PortParams())
     for i, (docs, freqs) in enumerate(c):
         b.add_posting_list(len(docs), docs, freqs, int(np.asarray(freqs).sum()))
         if i == 50:

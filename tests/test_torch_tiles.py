@@ -1,19 +1,21 @@
 """The port's host copies (ds2i_torch.engine.tiles, tiles_fast,
-ds2i_torch.ops.segments) must build exactly the JAX package's tile
-tables."""
+ds2i_torch.ops.segments), over the port's own index, must build exactly
+the JAX package's tile tables over the JAX package's index of the same
+collection."""
 
 import numpy as np
 import pytest
 
 import ds2i_tpu.engine.tiles as jax_tiles
 import ds2i_tpu.ops.segments as jax_segments
-from ds2i_tpu import GlobalParameters
 from ds2i_tpu.engine.tiles_fast import build_tile_tables_ef as jax_build_ef
-from ds2i_tpu.index.types import make_index_type
-from ds2i_tpu.io import BinaryFreqCollection, generate_collection
+from ds2i_tpu.io import generate_collection
 
 import ds2i_torch.engine.tiles as torch_tiles
+import ds2i_torch.index.types as port_types
 import ds2i_torch.ops.segments as torch_segments
+
+from test_torch_host_copy import build_index
 
 _TABLE_FIELDS = ("docs", "freqs", "tile_list", "list_tile_start", "win_words", "lb_words")
 
@@ -27,11 +29,8 @@ def coll(tmp_path_factory):
 
 
 def build(coll_base, name):
-    c = BinaryFreqCollection(coll_base)
-    b = make_index_type(name).builder(c.num_docs, GlobalParameters())
-    for docs, freqs in c:
-        b.add_posting_list(len(docs), docs, freqs, int(np.asarray(freqs).sum()))
-    return b.build()
+    """(JAX package's index, the port's index) of one collection."""
+    return build_index(coll_base, name, "ref"), build_index(coll_base, name, "port")
 
 
 def _assert_tables_equal(got, exp):
@@ -52,32 +51,29 @@ def test_constants_match():
 
 @pytest.mark.parametrize("name", ["ef", "single", "uniform", "opt"])
 def test_tile_tables_match_jax(coll, name):
-    index = build(coll, name)
-    _assert_tables_equal(torch_tiles.build_tile_tables(index), jax_tiles.build_tile_tables(index))
+    ref, port = build(coll, name)
+    _assert_tables_equal(torch_tiles.build_tile_tables(port), jax_tiles.build_tile_tables(ref))
 
 
 def test_generic_walk_matches_jax_fast_path_on_ef(coll, monkeypatch):
     """The copied generic per-list walk, forced on a plain `ef` index,
     equals the JAX package's vectorized fast path."""
-    index = build(coll, "ef")
-    exp = jax_build_ef(index)
-    import ds2i_tpu.index.types as types_mod
-
-    monkeypatch.setattr(types_mod, "is_plain_ef_index", lambda _: False)
-    _assert_tables_equal(torch_tiles.build_tile_tables(index), exp)
+    ref, port = build(coll, "ef")
+    exp = jax_build_ef(ref)
+    monkeypatch.setattr(port_types, "is_plain_ef_index", lambda _: False)
+    _assert_tables_equal(torch_tiles.build_tile_tables(port), exp)
 
 
 def test_segment_tables_match_jax(coll):
     """sequence_segments of the copy equals the original, list by list,
     on the partitioned `opt` index (every segment kind)."""
-    index = build(coll, "opt")
-    bv = index.docs_sequences.bits()
+    ref, port = build(coll, "opt")
     got, exp = torch_segments.SegmentTable(), jax_segments.SegmentTable()
-    for i in range(0, index.size(), 7):
-        _, n, off = index._header(i)
-        for mod, table in ((torch_segments, got), (jax_segments, exp)):
-            mod.sequence_segments(index.docs_sequence_type, bv, off, index.num_docs(), n,
-                                  index.params, table, list_id=i)
+    for i in range(0, ref.size(), 7):
+        for mod, index, table in ((torch_segments, port, got), (jax_segments, ref, exp)):
+            _, n, off = index._header(i)
+            mod.sequence_segments(index.docs_sequence_type, index.docs_sequences.bits(), off,
+                                  index.num_docs(), n, index.params, table, list_id=i)
     assert set(got.kind) == {torch_segments.SEG_EF, torch_segments.SEG_RB, torch_segments.SEG_AO}
     for k, v in exp.arrays().items():
         np.testing.assert_array_equal(got.arrays()[k], v, err_msg=k)
