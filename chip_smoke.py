@@ -11,17 +11,27 @@ mode (bench.py's default index type).
   2. build the CUDA kernels from csrc/ (one nvcc per source, all at
      once), print the build seconds
   3. generate (or reuse) the collection and its WandData
-  opt path (pair mode, kernel pair_decode):
-  4. kernel phase: decode every tile of the index, both streams and the
-     docs stream alone, through the CUDA kernel and through its plain
-     PyTorch version on the card; bit equality, both times (CUDA events,
-     median of 5), with and without the host's launch overhead; 200
-     random lists against the host decoder
+  opt path (pair mode, kernel pair_decode: one launch a part, both
+  streams, through the wrapper ops/pair_decode.py:decode_pair):
+  4. kernel phase: every tile as one part (ResidentEngine.all_tiles_part);
+     the norm cache's one docs-mode launch; the launch in each mode
+     (docs, presence, BM25 weights) against decode_pair_launch_torch on
+     the card and the whole part against pair_decode_part_torch, bit for
+     bit; 200 random lists against the host decoder; the BM25 launch
+     timed (CUDA events, median of 5) through the wrapper, alone (queued
+     behind a spin) and plain, beside its bound by bytes (pair_bytes: the
+     fused work, each row's map entry, the fields it reads, the window
+     and low-bit words it spans, the den of its valid slots, docs32 and
+     w32 written)
   5. slice phase: ResidentEngine(device="cuda"), prepare the full query
      log, 1 warmup + 9 timed passes of execute; us/query and the
      kernels' launch counts over the run (every count set to 0 just
-     before it); then the decode stage of one pass alone, host clock
-  6. oracle phase: the first 300 queries against the numpy oracle
+     before it; at most one pair_decode launch a part); then the decode
+     stage of one pass alone, host clock
+  6. part phase: every part of the slice's plan against
+     pair_decode_part_torch, bit for bit; one pass's launches timed
+     through the wrapper and alone, beside their bound
+  7. oracle phase: the first 300 queries against the numpy oracle
      (counts exact, top-10 scores within rtol 1e-3)
   block_optpfor path (split mode, kernels optpfor_decode and
   interp_decode, one launch per kernel and stream of a part): the kernel
@@ -30,8 +40,8 @@ mode (bench.py's default index type).
   the slice phase (launches a pass: at most 2 a part per kernel), the
   part phase (every part of the slice's plan against the plain version;
   each kernel's launches of one pass timed) and the oracle phase
-  7. block_interpolative: a smaller oracle-only run (100 queries)
-  8. the kernels' JSON line, then {"ok": true, "device": {...}} last
+  8. block_interpolative: a smaller oracle-only run (100 queries)
+  9. the kernels' JSON line, then {"ok": true, "device": {...}} last
 
 Exits non-zero, printing no result, without a CUDA device or when any
 check fails. Scale: DS2I_BENCH_DOCS / _POSTINGS / _TERMS / _QUERIES as
@@ -172,107 +182,147 @@ def bound(nbytes):
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
-def pair_bytes(eng, groups, gids):
-    """The bytes the pair decode of rows gids (in groups) must move: per
-    real row and stream, the 10 field words the decode reads (all but
-    F_PREV_CUM for docs, all but F_NVALS for freqs), the high-bits window
-    words its F_WIN_LEN bits span (EF, strict EF and ranked-bitvector
-    segments) and the words its n_vals * l low bits span (EF and strict
-    EF); per pad row its n_vals; each output slot written once (T int32
-    of each stream for every row)."""
+def pair_bytes(eng, launch, gtile_host, mode):
+    """The bytes one pair_decode launch must move on this run's data, each
+    input read once and each output written once: every row's map entry;
+    a pad row's n_vals; per real row and decoded stream (docs, and freqs
+    for "bm25"), the 10 field words its decode reads (all but F_PREV_CUM
+    for docs, all but F_NVALS for freqs), the high-bits window words its
+    F_WIN_LEN bits span (EF, strict EF and ranked-bitvector segments) and
+    the words its n_vals * l low bits span (EF and strict EF); for "bm25"
+    its tile_gblk0 entry and the den of each valid slot; each output block
+    written (docs32, and w32 in the weighted modes)."""
     from ds2i_torch.engine.tiles import (
         F_KIND, F_LB_BITOFF, F_LOWER_BITS, F_NVALS, F_WIN_BITOFF, F_WIN_LEN,
     )
     from ds2i_torch.ops.segments import SEG_EF, SEG_EF_STRICT, SEG_RB
 
-    nt = eng.pad_tile
-    nbytes = 0
-    for off, R, st in groups:
-        ids = gids[off:off + R].astype(np.int64)
-        r = ids[ids < nt]
-        nbytes += 4 * (R - len(r)) + 2 * 4 * R * st[3]
-        n = eng.tiles.docs[r, F_NVALS].astype(np.int64)
-        for table in (eng.tiles.docs, eng.tiles.freqs):
-            f = table[r].astype(np.int64)
-            high = np.isin(f[:, F_KIND], (SEG_EF, SEG_EF_STRICT, SEG_RB)) & (f[:, F_WIN_LEN] > 0)
-            hw = np.where(high, (f[:, F_WIN_BITOFF] + f[:, F_WIN_LEN] + 31) // 32, 0)
-            lbits = n * f[:, F_LOWER_BITS]
-            low = np.isin(f[:, F_KIND], (SEG_EF, SEG_EF_STRICT)) & (lbits > 0)
-            lw = np.where(low, (f[:, F_LB_BITOFF] + lbits + 31) // 32, 0)
-            nbytes += 4 * (10 * len(r) + int(hw.sum()) + int(lw.sum()))
+    h = launch.host.astype(np.int64)
+    if not len(h):
+        return 0
+    nrows = h[:, 4]
+    rows = np.repeat(h[:, 3] - (np.cumsum(nrows) - nrows), nrows) + np.arange(int(nrows.sum()))
+    T = np.repeat(h[:, 2], nrows)
+    ids = gtile_host[rows].astype(np.int64)
+    r = ids[ids < eng.pad_tile]
+    outputs = 1 if mode == "docs" else 2
+    nbytes = 8 * len(ids) + 4 * (len(ids) - len(r)) + 4 * outputs * int(T.sum())
+    n = eng.tiles.docs[r, F_NVALS].astype(np.int64)
+    if mode == "bm25":
+        nbytes += 8 * len(r) + 4 * int(n.sum())
+    for table in (eng.tiles.docs, eng.tiles.freqs)[:2 if mode == "bm25" else 1]:
+        f = table[r].astype(np.int64)
+        high = np.isin(f[:, F_KIND], (SEG_EF, SEG_EF_STRICT, SEG_RB)) & (f[:, F_WIN_LEN] > 0)
+        hw = np.where(high, (f[:, F_WIN_BITOFF] + f[:, F_WIN_LEN] + 31) // 32, 0)
+        lbits = n * f[:, F_LOWER_BITS]
+        low = np.isin(f[:, F_KIND], (SEG_EF, SEG_EF_STRICT)) & (lbits > 0)
+        lw = np.where(low, (f[:, F_LB_BITOFF] + lbits + 31) // 32, 0)
+        nbytes += 4 * (10 * len(r) + int(hw.sum()) + int(lw.sum()))
     return nbytes
 
 
-def kernel_phase(eng, index):
-    """Every tile through the CUDA kernel and through decode_pair_torch on
-    the card: bit equality, times, and 200 lists against the host
-    decoder. Returns the kernel's JSON entry (launches filled later)."""
+def _same_bits(a, b):
+    """Equal shapes and dtypes, and equal bits (so -0.0 != +0.0 and NaNs
+    compare by payload)."""
     import torch
 
-    from ds2i_torch.ops.pair_decode import decode_pair, decode_pair_torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def kernel_phase(eng, index):
+    """Every tile of the EF-family index as one part
+    (ResidentEngine.all_tiles_part): the norm cache's one docs-mode
+    launch; pair_decode's launch in each mode (docs, presence, BM25)
+    through the wrapper against decode_pair_launch_torch on the card, bit
+    for bit; the whole part through pair_decode_part against
+    pair_decode_part_torch; 200 lists against the host decoder (docids,
+    and BM25 weights against f / (f + den) of the host's freqs); the BM25
+    launch timed through the wrapper, alone and plain, beside its bound.
+    Returns the kernel's JSON entry (launches filled later)."""
+    import torch
+
     from ds2i_torch.engine.tiles import F_NVALS
+    from ds2i_torch.ops.pair_decode import (
+        decode_pair, decode_pair_launch_torch, pair_decode_part, pair_decode_part_torch,
+    )
 
-    s, dev, nt = eng.state, eng.device, eng.pad_tile
-    groups, gids, _, _, _ = eng._order_groups(np.arange(nt), eng.tile_gid, eng.group_statics)
-    ids_all = torch.from_numpy(gids.astype(np.int64)).to(dev)
-    args = [
-        (s.tiles_docs[ids_all[off:off + R]], s.tiles_freqs[ids_all[off:off + R]], st)
-        for off, R, st in groups
-    ]
+    n0 = decode_pair.launches
+    eng._ensure_norm_cache()
+    if decode_pair.launches - n0 != 1:
+        raise AssertionError(f"the norm cache launched pair_decode {decode_pair.launches - n0} "
+                             f"times, not once")
+    s, dev, nd = eng.state, eng.device, eng.num_docs
+    part = eng.all_tiles_part()
+    gt, lay = part.gtile_ids, part.layout
+    launch = lay.launch("pair", True, dev)
+    largs = (s.docs_words, s.freqs_words, s.tiles_docs, s.tiles_freqs, gt)
 
-    def run(fn):
-        return [fn(s.docs_words, s.freqs_words, df, ff, st[1], st[2], st[3], eng.num_docs)
-                for df, ff, st in args]
+    def run(fn, mode, out, w):
+        return fn(launch, *largs, mode, nd, out, w, s.den_blocks, s.tile_gblk0)
 
-    got, ref = run(decode_pair), run(decode_pair_torch)
-    # the docs-only form the engine's norm cache launches
-    docs_only = [decode_pair(s.docs_words, None, df, None, st[1], st[2], st[3], eng.num_docs)[0]
-                 for df, _, st in args]
+    max_err = 0.0
+    for mode in ("docs", "presence", "bm25"):
+        res = []
+        for fn in (decode_pair, decode_pair_launch_torch):
+            out = torch.full((lay.nb_d, 32), -7, dtype=torch.int32, device=dev)
+            w = torch.full((lay.nb_d, 32), -7.0, device=dev)
+            res.append(run(fn, mode, out, w))
+        torch.cuda.synchronize()
+        (go, gw), (po, pw) = res
+        max_err = max(max_err, float((go.long() - po.long()).abs().max()),
+                      float((gw - pw).abs().max()))
+        if not (_same_bits(go, po) and _same_bits(gw, pw)):
+            raise AssertionError(f"pair_decode ({mode}) differs from decode_pair_launch_torch: "
+                                 f"max |err| {max_err}")
+        if mode == "bm25":
+            docs_h, w_h = go.cpu().numpy(), gw.cpu().numpy()
+    rows_p = 1 << max(lay.nb_d - 1, 0).bit_length()
+    pargs = (*largs, lay, nd, "bm25", s.den_blocks, s.tile_gblk0, rows_p)
+    (gd, gw), (pd, pw) = pair_decode_part(*pargs), pair_decode_part_torch(*pargs)
     torch.cuda.synchronize()
-    max_err = 0
-    for (gd, gf), (rd, rf), gdo in zip(got, ref, docs_only):
-        for a, b in ((gd, rd), (gf, rf), (gdo, rd)):
-            if a.shape != b.shape or a.dtype != b.dtype:
-                raise AssertionError(f"kernel output {a.shape} {a.dtype} != plain {b.shape} {b.dtype}")
-            max_err = max(max_err, int((a.long() - b.long()).abs().max()))
-    if max_err != 0:
-        raise AssertionError(f"CUDA pair decode differs from decode_pair_torch: max |err| {max_err}")
-    ms = cuda_ms(lambda: run(decode_pair))
-    plain_ms = cuda_ms(lambda: run(decode_pair_torch))
-    dev_ms = device_only_ms(lambda: run(decode_pair))
-    dev_plain_ms = device_only_ms(lambda: run(decode_pair_torch))
-    shapes = ", ".join(f"{st[1:]}x{R}" for _, R, st in groups)
-    log(f"kernel phase: {nt} tiles in {len(groups)} groups [(W, WL, T) x rows: {shapes}]")
-    nbytes = pair_bytes(eng, groups, gids)
-    bound_ms, bound_by = bound(nbytes)
-    log(f"kernel phase: bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes)")
-    log(f"kernel phase: CUDA == plain bit for bit, both streams and docs only (max |err| "
-        f"{max_err}); all tiles, both streams: kernel {ms:.4f} ms, plain PyTorch "
-        f"{plain_ms:.4f} ms (median of 5)")
-    log(f"kernel phase: device work alone (launches queued behind a spin): kernel "
-        f"{fmt_ms(dev_ms)}, plain PyTorch {fmt_ms(dev_plain_ms)} (median of 5)")
+    if not (_same_bits(gd, pd) and _same_bits(gw, pw)):
+        raise AssertionError("pair_decode_part differs from pair_decode_part_torch over every tile")
+    log(f"kernel phase: {eng.pad_tile} tiles in {len(lay.groups)} groups, one launch "
+        f"({launch.n_cta} CTAs, {lay.nb_d} blocks) [(W, WL, T) x rows: "
+        f"{', '.join(f'{st[1:]}x{R}' for _, R, st in lay.groups)}]; norm cache: 1 launch")
+    log(f"kernel phase: CUDA == plain bit for bit in modes docs, presence and BM25 (max |err| "
+        f"{max_err}), and pair_decode_part == pair_decode_part_torch over every tile")
 
     # 200 random lists against the host decoder
-    tile_group = np.zeros(nt, np.int64)
-    tile_row = np.zeros(nt, np.int64)
-    for g, (off, R, _) in enumerate(groups):
-        ids = gids[off:off + R]
-        real = ids < nt
-        tile_group[ids[real]] = g
-        tile_row[ids[real]] = np.flatnonzero(real)
-    host = [(d.cpu().numpy(), f.cpu().numpy()) for d, f in got]
     nvals = eng.tiles.docs[:, F_NVALS]
+    den_h = s.den_blocks.cpu().numpy()
+    g0 = s.tile_gblk0.cpu().numpy()
     rng = np.random.RandomState(0)
     lists = rng.choice(np.flatnonzero(eng.list_n > 0), size=min(200, int(np.sum(eng.list_n > 0))),
                        replace=False)
     for li in lists:
         tiles = range(int(eng.list_tile_start[li]), int(eng.list_tile_start[li + 1]))
-        docs = np.concatenate([host[tile_group[t]][0][tile_row[t], :nvals[t]] for t in tiles])
-        freqs = np.concatenate([host[tile_group[t]][1][tile_row[t], :nvals[t]] for t in tiles])
+        at = lambda a, t, b0: a[b0:][:4].reshape(-1)[:nvals[t]]  # noqa: E731
+        docs = np.concatenate([at(docs_h, t, part.tblk[t]) for t in tiles])
+        w = np.concatenate([at(w_h, t, part.tblk[t]) for t in tiles])
+        den = np.concatenate([at(den_h, t, g0[t]) for t in tiles])
         hd, hf = index.decode_list(int(li))
-        if not (np.array_equal(docs, hd) and np.array_equal(freqs, hf)):
+        f = np.asarray(hf, dtype=np.float32)
+        if not (np.array_equal(docs, hd)
+                and np.array_equal(w.view(np.uint32), (f / (f + den)).view(np.uint32))):
             raise AssertionError(f"list {li}: CUDA decode differs from index.decode_list")
-    log(f"kernel phase: {len(lists)} random lists equal index.decode_list")
+    log(f"kernel phase: {len(lists)} random lists: docids equal index.decode_list, BM25 weights "
+        f"equal f / (f + den) of its freqs bit for bit")
+
+    out = torch.empty((lay.nb_d, 32), dtype=torch.int32, device=dev)
+    w = torch.empty((lay.nb_d, 32), dtype=torch.float32, device=dev)
+    ms = cuda_ms(lambda: run(decode_pair, "bm25", out, w))
+    dev_ms = device_only_ms(lambda: run(decode_pair, "bm25", out, w))
+    plain_ms = cuda_ms(lambda: run(decode_pair_launch_torch, "bm25", out, w))
+    nbytes = pair_bytes(eng, launch, gt.cpu().numpy(), "bm25")
+    bound_ms, bound_by = bound(nbytes)
+    log(f"kernel phase: the BM25 launch over every tile: kernel {ms:.4f} ms through the wrapper, "
+        f"{fmt_ms(dev_ms)} alone, plain PyTorch {plain_ms:.4f} ms (median of 5); bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({nbytes} bytes)")
     return {
         "name": "pair_decode",
         "route": "cuda",
@@ -286,6 +336,48 @@ def kernel_phase(eng, index):
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call decodes Elias-Fano
     }
+
+
+def pair_part_phase(eng, plan):
+    """Over every part of the `opt` slice's plan: pair_decode_part on the
+    card against pair_decode_part_torch, bit for bit; then one ranked
+    pass's launches (one a part), timed through the wrapper and alone,
+    beside their bound."""
+    import torch
+
+    from ds2i_torch.ops.pair_decode import decode_pair, pair_decode_part, pair_decode_part_torch
+
+    s, dev, nd = eng.state, eng.device, eng.num_docs
+    parts = []
+    for p in plan["plans"]:
+        gt = p["_dev"][dev][0]
+        lay = p["layout"]
+        rows = 1 << max(lay.nb_d - 1, 0).bit_length()
+        args = (s.docs_words, s.freqs_words, s.tiles_docs, s.tiles_freqs, gt, lay, nd, "bm25",
+                s.den_blocks, s.tile_gblk0, rows)
+        (gd, gw), (pd, pw) = pair_decode_part(*args), pair_decode_part_torch(*args)
+        torch.cuda.synchronize()
+        if not (_same_bits(gd, pd) and _same_bits(gw, pw)):
+            raise AssertionError("pair_decode_part differs from pair_decode_part_torch on a part "
+                                 "of the slice's plan")
+        parts.append((p, gt, lay.launch("pair", True, dev), gd, gw))
+    log(f"opt part phase: pair_decode_part == pair_decode_part_torch on all {len(parts)} parts "
+        f"of the slice's plan, docs32 and w32 bit for bit")
+
+    def run():
+        for _, gt, launch, docs, w in parts:
+            decode_pair(launch, s.docs_words, s.freqs_words, s.tiles_docs, s.tiles_freqs, gt,
+                        "bm25", nd, docs, w, s.den_blocks, s.tile_gblk0)
+
+    ms = cuda_ms(run)
+    dev_ms = device_only_ms(run)
+    nbytes = sum(pair_bytes(eng, launch, np.asarray(p["gtile_ids"]), "bm25")
+                 for p, _, launch, _, _ in parts)
+    bound_ms, bound_by = bound(nbytes)
+    log(f"opt part phase: pair_decode: one ranked pass, {len(parts)} launches "
+        f"({sum(x[2].n_cta for x in parts)} CTAs): {ms:.4f} ms through the wrapper, "
+        f"{fmt_ms(dev_ms)} alone (median of 5); bound {bound_ms:.4f} ms by {bound_by} "
+        f"({nbytes} bytes)")
 
 
 def _interp_order(n):
@@ -526,7 +618,7 @@ def part_kernel_phase(eng, plan, code_words):
     parts = []
     for p in plan["plans"]:
         gt, gf, bp = p["_dev"][dev][:3]
-        lay = p["split"]
+        lay = p["layout"]
         rows = 1 << max(lay.nb_d - 1, 0).bit_length()
         args = (s.docs_words, s.tiles_docs, s.tiles_freqs, gt, gf, bp, lay, nd, "bm25",
                 s.den_blocks, s.tile_gblk0, rows)
@@ -575,8 +667,9 @@ def part_kernel_phase(eng, plan, code_words):
 def slice_phase(eng, queries, wrappers, tag):
     """A main path: prepare the whole log, 1 warmup + PASSES timed
     passes. Every wrapper's launch count must rise in the timed passes;
-    a split-mode pass launches each block kernel at most twice a part
-    (once per stream). Returns the plan and the last pass's results."""
+    a pass launches pair_decode at most once a part, and each block
+    kernel at most twice a part (once per stream). Returns the plan and
+    the last pass's results."""
     import torch
 
     torch.cuda.reset_peak_memory_stats()
@@ -603,10 +696,11 @@ def slice_phase(eng, queries, wrappers, tag):
     nparts = len(plan["plans"])
     log(f"{tag} slice phase: launches a pass: "
         f"{ {name: n / PASSES for name, n in timed.items()} } over {nparts} parts")
-    if plan["plans"][0]["split"] is not None:
-        for name, n in timed.items():
-            if n > 2 * nparts * PASSES:
-                raise AssertionError(f"{name}: {n / PASSES} launches a pass, more than 2 a part")
+    per_part = 1 if plan["plans"][0]["layout"].pair else 2
+    for name, n in timed.items():
+        if n > per_part * nparts * PASSES:
+            raise AssertionError(f"{name}: {n / PASSES} launches a pass, more than {per_part} a "
+                                 f"part")
     us = [x / len(queries) * 1e6 for x in times]
     log(f"{tag} slice phase: exhaustive ranked_and top-10, {len(queries)} queries, {PASSES} "
         f"passes: median {statistics.median(us):.4f} us/query (min {min(us):.4f}, max "
@@ -653,7 +747,7 @@ def decode_stage_phase(eng, plan, tag):
     def one_pass():
         for p in plan["plans"]:
             gt, gf, bp = p["_dev"][dev][:3]
-            resident._decode_part(s, gt, gf, bp, p["groups"], p["split"], eng.num_docs, True)
+            resident._decode_part(s, gt, gf, bp, p["layout"], eng.num_docs, True)
         torch.cuda.synchronize()
 
     one_pass()
@@ -727,7 +821,8 @@ def main():
     index = build_index(coll, "opt")
     eng = start_engine(index, wdata)
     pair_entry = kernel_phase(eng, index)
-    main_path(eng, queries, [(pair_entry, pair_decode.decode_pair)], "opt")
+    plan = main_path(eng, queries, [(pair_entry, pair_decode.decode_pair)], "opt")
+    pair_part_phase(eng, plan)
     oracle_phase(eng, index, wdata, queries, ORACLE_QUERIES, "opt")
     del eng
 

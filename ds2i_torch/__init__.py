@@ -11,10 +11,12 @@ rewritten by hand in CUDA C++ (`csrc/`).
 Layer map (mirrors ds2i_tpu's module names):
   device             resolve_device: CUDA unless "cpu" is asked for by name
   ops.segments       host segment tables (numpy copy)
-  ops.pair_decode    EF-family pair decode: plain PyTorch + CUDA kernel
+  ops.pair_decode    EF-family pair decode of a part: plain PyTorch +
+                     CUDA kernel, one launch a part for both streams
   ops.block_decode   split-mode decode of a part (OptPFor and
                      interpolative blocks): plain PyTorch + two CUDA
-                     kernels, one launch per stream of a part each
+                     kernels, one launch per stream of a part each; the
+                     CTA tables of both modes (PartLayout)
   engine.tiles       host tile tables (numpy copy; tiles_fast for plain ef)
   engine.block_tiles host block tile tables and exception patches (copy)
   engine.state       the resident device tensors

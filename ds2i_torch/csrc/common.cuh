@@ -17,13 +17,19 @@ __device__ __forceinline__ uint32_t load_word(const uint32_t* __restrict__ words
   return __ldg(words + i);
 }
 
+// asynchronous copy of the 4 bytes at src into shared memory at dst;
+// completes at cp_async_wait_all
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
 // asynchronous copy of word i of the stream (clamped as load_word) into
 // shared memory at dst; completes at cp_async_wait_all
 __device__ __forceinline__ void cp_async_word(uint32_t* dst, const uint32_t* __restrict__ words,
                                               long long nw, long long i) {
   i = i < 0 ? 0 : (i > nw - 1 ? nw - 1 : i);
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(words + i) : "memory");
+  cp_async_4(dst, words + i);
 }
 
 // wait for every cp.async this thread issued; the caller then syncs the
@@ -32,15 +38,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
-// the part-level block decode (csrc/optpfor_decode.cu, csrc/interp_decode.cu)
+// the part-level decode (csrc/pair_decode.cu, csrc/optpfor_decode.cu,
+// csrc/interp_decode.cu)
 //
-// A launch covers every group of one kernel in one stream of a part. Its
-// CTA table holds one entry per CTA, int32 [p1, p2, T, row0, nrows, blk0]:
-// the group's statics (OptPFor: b, E; interpolative: W, 0), the tile
-// width T, the CTA's first row in the part's row-to-tile map `gtile`
-// (int64), its row count (never straddling two groups) and the output
-// block of its first row; row r of the CTA writes blocks
-// [blk0 + r * bpt, + bpt), bpt = max(T / 32, 1), of 32 slots each.
+// A launch covers every group of one kernel in one stream of a part (pair
+// mode: both streams of a part). Its CTA table holds one entry per CTA,
+// int32 [p1, p2, T, row0, nrows, blk0]: the group's statics (EF pair: W,
+// WL; OptPFor: b, E; interpolative: W, 0), the tile width T, the CTA's
+// first row in the part's row-to-tile map `gtile` (int64), its row count
+// (never straddling two groups) and the output block of its first row;
+// row r of the CTA writes blocks [blk0 + r * bpt, + bpt), bpt =
+// max(T / 32, 1), of 32 slots each.
 constexpr int kCtaFields = 6;
 enum CtaField { kCtaP1 = 0, kCtaP2 = 1, kCtaT = 2, kCtaRow0 = 3, kCtaNRows = 4, kCtaBlk0 = 5 };
 

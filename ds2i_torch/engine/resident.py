@@ -8,23 +8,24 @@ Everything static lives on the device from engine init: the compressed
 words, the per-tile decode fields and, once ranked ops run, the norm
 cache. A query batch uploads only its layout and downloads only results.
 
-Per part (one host plan each):
+Per part (one host plan each), on the device:
 
-  1. gather tile field rows from the resident tables by uploaded tile id
-  2. decode each UNIQUE tile once, by hand-written CUDA kernels on the
-     card: pair mode, per (W, WL, T) group, both streams in one launch
-     (ops.pair_decode); split mode, each stream in its own group-major
-     order, one launch per kernel (OptPFor, interpolative) and stream
-     over every group of the part (ops.block_decode.split_decode_part):
-     freqs first, then docs, whose launches also realign the freqs to
-     the docs order (blkperm) and write the weights
-  3. doc-term weights f/(f+den) from the init-time norm cache (pair mode
-     here; split mode inside the docs launches)
-  4. each query row gathers its terms' 32-slot blocks by block index
-  5. per length bucket: one stable row sort by docid joins the postings,
+  1. decode each UNIQUE tile once, by hand-written CUDA kernels on the
+     card, from CTA tables built with the plan (ops.block_decode.
+     PartLayout), each row reading its tile's fields from the resident
+     tables: pair mode, one launch over every (W, WL, T) group of the
+     part, both streams (ops.pair_decode.pair_decode_part); split mode,
+     each stream in its own group-major order, one launch per kernel
+     (OptPFor, interpolative) and stream (ops.block_decode.
+     split_decode_part): freqs first, then docs, whose launches also
+     realign the freqs to the docs order (blkperm). Either way the docs
+     launch writes the doc-term weights f/(f+den) from the init-time
+     norm cache (or presence flags) beside the docids
+  2. each query row gathers its terms' 32-slot blocks by block index
+  3. per length bucket: one stable row sort by docid joins the postings,
      bounded-run aggregation by shifted adds, AND/OR counts by row
      reductions, top-k per row
-  6. pack the real rows (scaled f16 when the plan allows) and download
+  4. pack the real rows (scaled f16 when the plan allows) and download
 
 The host planner (prepare/_part_plan/_order_groups) is numpy, copied
 from the JAX engine as it stands; its plan arrays equal the JAX
@@ -66,73 +67,36 @@ def _pow2_at_least(x, lo=1):
 # -- device functions (plain functions on tensors) ---------------------------
 
 
-def _decode_pair_blocks(docs_words, freqs_words, df, ff, st, R, num_docs):
-    """One EF-family group's (docids, raw freqs as f32) as 32-slot block
-    rows; pads carry num_docs / 0 (resident.py:_decode_pair_blocks)."""
-    T = st[-1]
-    doc, freq = pair_decode.decode_pair(
-        docs_words, freqs_words, df, ff, st[1], st[2], T, num_docs)
-    return doc.reshape(R * (T // BLOCK), BLOCK), freq.float().reshape(R * (T // BLOCK), BLOCK)
-
-
-def _norm_cache_step(docs_words, tiles_docs, norm_den, gtile_ids, groups, num_docs, split):
+def _norm_cache_step(docs_words, tiles_docs, norm_den, gtile_ids, layout, num_docs):
     """One-time decode of EVERY tile's docids -> per-slot BM25
     denominators, (total_blocks, 32) f32 in the canonical group-major
-    block order (docs stream only). split: the SplitLayout of the docs
-    groups (block indexes), else None."""
-    if split is not None:
-        d, _ = block_decode.split_decode_part(
-            docs_words, tiles_docs, None, gtile_ids, None, None, split, num_docs, None)
+    block order (docs stream only, one docs-mode launch of the part's
+    kernels). layout: the PartLayout of the docs groups."""
+    if layout.pair:
+        d, _ = pair_decode.pair_decode_part(
+            docs_words, None, tiles_docs, None, gtile_ids, layout, num_docs, None)
     else:
-        blocks = []
-        for off, R, st in groups:
-            doc, _ = pair_decode.decode_pair(
-                docs_words, None, tiles_docs[gtile_ids[off:off + R]], None, st[1], st[2],
-                st[-1], num_docs)
-            blocks.append(doc.reshape(-1, BLOCK))
-        d = torch.cat(blocks, dim=0)
+        d, _ = block_decode.split_decode_part(
+            docs_words, tiles_docs, None, gtile_ids, None, None, layout, num_docs, None)
     return norm_den[d.long().clamp(0, num_docs - 1)]
 
 
-def _decode_weight_blocks(state, gtile_ids, groups, num_docs, ranked):
-    """Decode every tile of a pair-mode (EF family) part into 32-slot
-    block rows: returns (docs32 int32, w32 f32) — docids (pads carry
-    num_docs) and doc-term weights (ranked) or 1.0 presence flags. Both
-    streams share the group layout."""
-    docs_blocks, w_blocks = [], []
-    for off, R, st in groups:
-        ids = gtile_ids[off:off + R]
-        doc, freq = _decode_pair_blocks(
-            state.docs_words, state.freqs_words, state.tiles_docs[ids],
-            state.tiles_freqs[ids], st, R, num_docs)
-        if ranked:
-            den = block_decode.den_rows(state.den_blocks, state.tile_gblk0, ids, st[-1])
-            # one f32 add + one f32 divide (IEEE on the card: no fast math)
-            w = freq / (freq + den)
-        else:
-            w = torch.where(doc < num_docs, 1.0, 0.0)
-        docs_blocks.append(doc)
-        w_blocks.append(w)
-    return torch.cat(docs_blocks, dim=0), torch.cat(w_blocks, dim=0)
-
-
-def _decode_part(state, gtile_ids, gtile_f, blkperm, groups, split, num_docs, ranked):
-    """Decode stage of one part; the slot tables pad to a power-of-two row
-    count (pad rows: docid num_docs, weight 0), as in the JAX engine.
-    split: the part's SplitLayout (block indexes: gtile_f and blkperm are
-    its freqs-order rows and realign), else None (pair mode)."""
-    if split is not None:
-        return block_decode.split_decode_part(
-            state.docs_words, state.tiles_docs, state.tiles_freqs, gtile_ids, gtile_f, blkperm,
-            split, num_docs, "bm25" if ranked else "presence", state.den_blocks,
-            state.tile_gblk0, out_rows=_pow2_at_least(split.nb_d))
-    docs32, w32 = _decode_weight_blocks(state, gtile_ids, groups, num_docs, ranked)
-    rows = docs32.shape[0]
-    rp = _pow2_at_least(rows)
-    if rp > rows:
-        docs32 = torch.nn.functional.pad(docs32, (0, 0, 0, rp - rows), value=num_docs)
-        w32 = torch.nn.functional.pad(w32, (0, 0, 0, rp - rows))
-    return docs32, w32
+def _decode_part(state, gtile_ids, gtile_f, blkperm, layout, num_docs, ranked):
+    """Decode stage of one part, written by its kernels straight into slot
+    tables padded to a power-of-two row count (pad rows: docid num_docs,
+    weight 0), as in the JAX engine: (docs32 int32, w32 f32), doc-term
+    weights (ranked) or 1.0 presence flags. layout: the part's PartLayout
+    (pair mode: one pair_decode launch for both streams; split mode:
+    gtile_f and blkperm are the freqs-order rows and realign)."""
+    weights = "bm25" if ranked else "presence"
+    rows = _pow2_at_least(layout.nb_d)
+    if layout.pair:
+        return pair_decode.pair_decode_part(
+            state.docs_words, state.freqs_words, state.tiles_docs, state.tiles_freqs, gtile_ids,
+            layout, num_docs, weights, state.den_blocks, state.tile_gblk0, out_rows=rows)
+    return block_decode.split_decode_part(
+        state.docs_words, state.tiles_docs, state.tiles_freqs, gtile_ids, gtile_f, blkperm,
+        layout, num_docs, weights, state.den_blocks, state.tile_gblk0, out_rows=rows)
 
 
 def _join_bucket(docs32, w32, bdir, qwtab, tgtv, num_docs, k, ops, tmax):
@@ -191,14 +155,11 @@ def _pack_rows(rows, pack_idx, fscale, fetch16):
 
 
 def _resident_step(state, gtile_ids, gtile_f, blkperm, bucket_dir, bucket_qwtab,
-                   bucket_tgt, pack_idx, groups, split, num_docs, k, ops, tmax,
-                   fetch16, fscale):
-    """One part: decode -> per-bucket join -> pack. gtile_f, blkperm and
-    split are the split-mode layout (unused in pair mode, where split is
-    None)."""
+                   bucket_tgt, pack_idx, layout, num_docs, k, ops, tmax, fetch16, fscale):
+    """One part: decode -> per-bucket join -> pack. gtile_f and blkperm
+    are the split-mode freqs layout (placeholders in pair mode)."""
     ranked = ("or" in ops) or ("and" in ops)
-    docs32, w32 = _decode_part(
-        state, gtile_ids, gtile_f, blkperm, groups, split, num_docs, ranked)
+    docs32, w32 = _decode_part(state, gtile_ids, gtile_f, blkperm, layout, num_docs, ranked)
     rows = tuple(
         _join_bucket(docs32, w32, d, q, t, num_docs=num_docs, k=k, ops=ops, tmax=tmax)
         for d, q, t in zip(bucket_dir, bucket_qwtab, bucket_tgt)
@@ -210,12 +171,18 @@ def _resident_step(state, gtile_ids, gtile_f, blkperm, bucket_dir, bucket_qwtab,
 
 
 class TilesPart(NamedTuple):
-    """ResidentEngine.all_tiles_part: every tile as one split-mode part."""
+    """ResidentEngine.all_tiles_part: every tile as one part. gtile_ids
+    maps the part's docs-order rows to tiles, tblk gives each tile's first
+    docs-order block. Split mode: gtile_f, blkperm and tblk_f are the
+    freqs-order rows, the docs->freqs block realign and each tile's first
+    freqs-order block. Pair mode, where both streams share the docs-order
+    rows: gtile_f and blkperm are the plan's one-entry placeholders, and
+    tblk_f is tblk."""
 
     gtile_ids: torch.Tensor
     gtile_f: torch.Tensor
     blkperm: torch.Tensor
-    split: "block_decode.SplitLayout"  # a string: ops.block_decode imports this module
+    layout: "block_decode.PartLayout"  # a string: ops.block_decode imports this module
     tblk: np.ndarray
     tblk_f: np.ndarray
 
@@ -398,7 +365,7 @@ class ResidentEngine:
         s.den_blocks = _norm_cache_step(
             s.docs_words, s.tiles_docs, s.norm_den,
             torch.from_numpy(gtile_ids.astype(np.int64)).to(self.device),
-            groups, self.num_docs, block_decode.SplitLayout(groups) if self.split else None,
+            block_decode.PartLayout(groups), self.num_docs,
         )
 
     def _docs_grouping(self):
@@ -505,19 +472,19 @@ class ResidentEngine:
         return groups_f, gtile_f, blkperm
 
     def all_tiles_part(self):
-        """Every tile of a split-mode engine as one part, laid out as a
-        plan's part is: (gtile_ids, gtile_f, blkperm) int64 on the
-        engine's device, the part's SplitLayout, and each tile's first
-        docs-order and freqs-order block (host arrays)."""
-        if not self.split:
-            raise ValueError("all_tiles_part lays out split-mode (block index) engines")
+        """Every tile as one part, laid out as a plan's part is (a
+        TilesPart): (gtile_ids, gtile_f, blkperm) int64 on the engine's
+        device, the part's PartLayout, and each tile's first docs-order
+        and freqs-order block (host arrays)."""
         utidx = np.arange(self.pad_tile)
         groups, gtile, tblk, _, nb_d = self._order_groups(utidx, *self._docs_grouping())
         groups_f, gtile_f, blkperm = self._split_layout(utidx, tblk, nb_d)
-        _, _, tblk_f, _, _ = self._order_groups(utidx, self.tile_gid_f, self.group_statics_f)
+        tblk_f = tblk
+        if self.split:
+            _, _, tblk_f, _, _ = self._order_groups(utidx, self.tile_gid_f, self.group_statics_f)
         put = lambda a: torch.from_numpy(a.astype(np.int64)).to(self.device)  # noqa: E731
         return TilesPart(put(gtile), put(gtile_f), put(blkperm),
-                         block_decode.SplitLayout(groups, groups_f), tblk, tblk_f)
+                         block_decode.PartLayout(groups, groups_f), tblk, tblk_f)
 
     def _part_plan(self, terms, qw, counts, k, ops, tmax, qids):
         """Layout for one part: group-major unique-tile ids + per-bucket
@@ -651,8 +618,8 @@ class ResidentEngine:
             "blkperm": blkperm,
             "groups": tuple(groups),
             "groups_f": tuple(groups_f),
-            # split mode: the CTA tables of the part's kernel launches
-            "split": block_decode.SplitLayout(groups, groups_f) if self.split else None,
+            # the CTA tables of the part's kernel launches
+            "layout": block_decode.PartLayout(groups, groups_f),
             "buckets": plan_buckets,
             "pack_idx": pack_idx,
             "sent_dir": int(sent_blk << 5),
@@ -748,13 +715,12 @@ class ResidentEngine:
                     tuple(put(b["tgt"]) for b in bb),
                     put(p["pack_idx"].astype(np.int64)),
                 )
-                if p["split"] is not None:
-                    p["split"].upload(dev)
+                p["layout"].upload(dev)
             d_gt, d_gf, d_bp, d_dir, d_qw, d_tgt, d_pidx = cache[dev]
             fetch16 = "counts" not in p["ops"] and p["fscale"] is not None
             out = _resident_step(
                 self.state, d_gt, d_gf, d_bp, d_dir, d_qw, d_tgt, d_pidx,
-                groups=p["groups"], split=p["split"], num_docs=self.num_docs,
+                layout=p["layout"], num_docs=self.num_docs,
                 k=p["k"], ops=p["ops"], tmax=p["tmax"], fetch16=fetch16,
                 fscale=p["fscale"] if fetch16 else None,
             )

@@ -33,15 +33,16 @@ _PART_ARGS = [
     _p, _p, _p, _p,  # freq blocks, blkperm, den_blocks, tile_gblk0 (bm25 mode, else NULL)
     _p,  # cudaStream_t
 ]
+# pair mode decodes both streams of a part in one launch: the split mode's
+# freq blocks and blkperm give way to the freqs stream's words and fields
+_PAIR_ARGS = _PART_ARGS[:12] + [
+    _p, _ll, _p,  # freqs words, word count, field table (bm25 mode, else NULL)
+    _p, _p,  # den_blocks, tile_gblk0 (bm25 mode, else NULL)
+    _p,  # cudaStream_t
+]
 # entry point and argtypes of each kernel library (csrc/<name>.cu)
 ENTRY_POINTS = {
-    "pair_decode": ("ds2i_pair_decode", [
-        _p, _ll, _p, _ll,  # docs words, count; freqs words (or NULL), count
-        _p, _p,  # docs / freqs field rows (R, N_FIELDS) int32
-        _i, _i, _i, _i, _i,  # R, W, WL, T, num_docs
-        _p, _p,  # doc_out, freq_out (or NULL)
-        _p,  # cudaStream_t
-    ]),
+    "pair_decode": ("ds2i_pair_decode_part", _PAIR_ARGS),
     "optpfor_decode": ("ds2i_optpfor_decode_part", _PART_ARGS),
     "interp_decode": ("ds2i_interp_decode_part", _PART_ARGS),
 }

@@ -17,7 +17,7 @@ raw outputs; `block_stream_torch` adds the assembly and the pad mask
 
 A part decodes in one launch per kernel and stream (freqs first, only
 for BM25 weights; then docs), over every group of the part: the host
-plan's SplitLayout holds each launch's CTA table (cta_table), and the
+plan's PartLayout holds each launch's CTA table (cta_table), and the
 kernels write 32-slot block rows straight into the part's tensors, the
 narrow-tail pad, the freq realign (blkperm), the norm-cache den rows
 and the weight w = f / (f + den) included (the JAX engine's
@@ -27,7 +27,8 @@ the per-group block_stream_torch; `decode_launch_torch` is what one
 launch writes. The wrappers `optpfor_decode` and `interp_decode` (one
 launch each, counted in `.launches`) and `split_decode_part` take those
 plain versions for CPU tensors only; on CUDA tensors they launch the
-kernels or raise.
+kernels or raise. PartLayout and cta_table also lay out pair mode's
+one launch a part (ops/pair_decode.py).
 
 Words are int32 tensors holding the uint32 words' bits; the plain
 versions widen them to int64 masked with 0xFFFFFFFF, so every shift and
@@ -233,23 +234,33 @@ def block_stream_torch(words, fld, st, num_docs, is_docs):
     return torch.where(valid, _i32(val), num_docs if is_docs else 0).int()
 
 
-# -- the part-level split decode ---------------------------------------------
+# -- the part-level decode ---------------------------------------------------
 #
-# One launch of each kernel per stream of a part (csrc/common.cuh): a CTA
-# table lists every CTA's rows, each inside one group, and the kernels
-# write 32-slot block rows straight into the part's tensors, pads, the
-# freq realign, the den rows and the weights included.
+# One launch of each kernel per stream of a part (csrc/common.cuh; pair
+# mode: one launch of pair_decode for both streams): a CTA table lists
+# every CTA's rows, each inside one group, and the kernels write 32-slot
+# block rows straight into the part's tensors, pads, the freq realign, the
+# den rows and the weights included.
 
 BLOCK = 32
+PAIR_ROWS = 16  # rows per pair_decode CTA, two a warp (csrc/pair_decode.cu kRows)
 K1_ROWS = 8  # rows per K1 CTA, one warp each (csrc/optpfor_decode.cu kWarps)
 K2_ROWS = 32  # rows per K2 CTA, one thread each (csrc/interp_decode.cu kRows)
+ROWS_PER_CTA = {"pair": PAIR_ROWS, "optpfor": K1_ROWS, "interp": K2_ROWS}
 CTA_FIELDS = 6  # [p1, p2, T, row0, nrows, blk0]
 MODES = {"freqs": 0, "docs": 1, "presence": 2, "bm25": 3}  # csrc/common.cuh Mode
-KERNELS = ("optpfor", "interp")
+KERNELS = ("optpfor", "interp")  # the split-mode kernels, in launch order
+PAIR_MAX_W = 1024  # W and WL of a pair group (csrc/pair_decode.cu kMaxW)
 
 
 def _kernel_of(st):
     """Which kernel decodes a group of statics st."""
+    if st[0] == "ef":
+        if (st[-1] not in (32, 64, 128) or not 1 <= st[1] <= PAIR_MAX_W
+                or not 0 <= st[2] <= PAIR_MAX_W):
+            raise ValueError(f"pair_decode takes (\"ef\", W in 1..{PAIR_MAX_W}, WL in "
+                             f"0..{PAIR_MAX_W}, T in (32, 64, 128)), got {st}")
+        return "pair"
     if st[0] in ("opt", "optp"):
         if st[0] == "opt" and st[2] > 0:
             raise NotImplementedError(
@@ -271,21 +282,24 @@ def cta_table(groups, kernel):
     """The CTA table of one kernel over one stream's groups ((off, R, st)
     in group-major row order, as _order_groups lays them out): int32
     (n, CTA_FIELDS) rows [p1, p2, T, row0, nrows, blk0], each CTA's rows
-    inside one group; K2's CTAs ordered by T, longest first (stable).
-    Returns (table, total blocks of the stream)."""
-    rows_per = K1_ROWS if kernel == "optpfor" else K2_ROWS
+    inside one group; the CTAs of the longest rows first (stable): K2's
+    by T, pair_decode's by T, then W + WL. Returns (table, total blocks
+    of the stream)."""
+    rows_per = ROWS_PER_CTA[kernel]
     ents, blk = [], 0
     for off, R, st in groups:
         T = st[-1]
         bpt = max(T // BLOCK, 1)
         if _kernel_of(st) == kernel:
-            p1, p2 = (st[1], st[2]) if kernel == "optpfor" else (st[1], 0)
+            p1, p2 = (st[1], 0) if kernel == "interp" else (st[1], st[2])
             ents += [(p1, p2, T, off + r0, min(rows_per, R - r0), blk + r0 * bpt)
                      for r0 in range(0, R, rows_per)]
         blk += R * bpt
     tab = np.array(ents, dtype=np.int64).reshape(-1, CTA_FIELDS)
     if kernel == "interp":
         tab = tab[np.argsort(-tab[:, 2], kind="stable")]
+    elif kernel == "pair":
+        tab = tab[np.lexsort((-(tab[:, 0] + tab[:, 1]), -tab[:, 2]))]
     if tab.size and tab.max() >= 2**31:
         raise ValueError("a part's rows or blocks pass 2^31")
     return tab.astype(np.int32), blk
@@ -293,28 +307,46 @@ def cta_table(groups, kernel):
 
 class Launch:
     """One kernel's launch over one stream of a part: its CTA table on the
-    host, its copy on one device, and the launch sizes."""
+    host, its copy on one device, and the launch sizes (max_w: K2's
+    largest window, pair_decode's largest W + WL + 1 staged words and T
+    slots of a stream)."""
 
     def __init__(self, kernel, host, dev):
         self.kernel, self.host, self.dev = kernel, host, dev
         self.n_cta = len(host)
+        h = host.astype(np.int64)
+        # the blocks the launch writes end before end_blk
+        ends = h[:, 5] + h[:, 4] * np.maximum(h[:, 2] // BLOCK, 1)
+        self.end_blk = int(ends.max()) if self.n_cta else 0
         if kernel == "optpfor":
             self.max_w, self.max_t = 0, TILE
+        elif kernel == "pair":
+            self.max_w = int((h[:, 0] + h[:, 1] + 1 + h[:, 2]).max()) if self.n_cta else 0
+            self.max_t = int(h[:, 2].max()) if self.n_cta else BLOCK
         else:
             self.max_w = int(host[:, 0].max()) if self.n_cta else 1
             self.max_t = int(host[:, 2].max()) if self.n_cta else 1
 
 
-class SplitLayout:
-    """One part's split decode: the docs- and freqs-order groups and the
-    CTA table of each kernel and stream, built once on the host with the
-    plan and uploaded once per device."""
+class PartLayout:
+    """One part's decode: the docs- and freqs-order groups and the CTA
+    table of each kernel and stream, built once on the host with the plan
+    and uploaded once per device. An EF-family part (pair mode: statics
+    ("ef", W, WL, T), no freqs-order groups) has one table, pair_decode's
+    over both streams; a block part (split mode) one per kernel and
+    stream."""
 
     def __init__(self, groups, groups_f=()):
         self.groups, self.groups_f = tuple(groups), tuple(groups_f)
+        kinds = {_kernel_of(st) for _, _, st in self.groups + self.groups_f}
+        self.pair = "pair" in kinds
+        if self.pair and (len(kinds) > 1 or self.groups_f):
+            raise ValueError("a part is either EF pair groups alone or block groups")
         self.tables = {}
         for is_docs, grp in ((True, self.groups), (False, self.groups_f)):
-            for kernel in KERNELS:
+            for kernel in ("pair",) + KERNELS:
+                if kernel == "pair" and not is_docs:
+                    continue
                 self.tables[kernel, is_docs], nb = cta_table(grp, kernel)
             if is_docs:
                 self.nb_d = nb
@@ -323,9 +355,10 @@ class SplitLayout:
         self._launches = {}
 
     def upload(self, device):
-        """Every CTA table to `device` (once; later calls find them)."""
-        for kernel in KERNELS:
-            for is_docs in (True, False):
+        """Every non-empty CTA table to `device` (once; later calls find
+        them)."""
+        for (kernel, is_docs), host in self.tables.items():
+            if len(host):
                 self.launch(kernel, is_docs, device)
 
     def launch(self, kernel, is_docs, device):
@@ -441,6 +474,10 @@ def _check_launch_args(launch, words, named):
             raise ValueError(
                 f"{name}: the kernel takes a contiguous {dtype} tensor on {dev}, got "
                 f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+        if name in ("out", "w") and (t.dim() != 2 or t.shape[1] != BLOCK
+                                     or t.shape[0] < launch.end_blk):
+            raise ValueError(f"{name}: the launch writes blocks [0, {launch.end_blk}) of "
+                             f"{BLOCK} slots, got {tuple(t.shape)}")
     if words.dim() != 1 or words.numel() == 0:
         raise ValueError("words must be a non-empty 1-D word array")
 
@@ -489,7 +526,7 @@ def _decode_launch(wrapper, launch, words, fld, gtile, mode, num_docs, out, w, f
 def optpfor_decode(launch, words, fld, gtile, mode, num_docs, out, w=None, freq=None,
                    blkperm=None, den_blocks=None, tile_gblk0=None):
     """K1 over one stream of a part: every ("opt"|"optp", b, E, 128) group
-    that `launch` (SplitLayout.launch) lists, written into out (and w) as
+    that `launch` (PartLayout.launch) lists, written into out (and w) as
     decode_launch_torch writes them. CPU tensors take that plain version;
     CUDA tensors launch csrc/optpfor_decode.cu once (counted in
     optpfor_decode.launches) or raise."""

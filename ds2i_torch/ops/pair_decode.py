@@ -1,13 +1,23 @@
-"""EF-family tile decode, both streams of a tile group in one call.
+"""EF-family pair decode: both streams of a part in one launch.
 
 Port of ds2i_tpu/ops/pallas_decode.py:decode_pair (the Pallas kernel
 _pair_kernel / _decode_stream / _gather_windows) and its bit-identical
-XLA twin ds2i_tpu/engine/tile_executor.py:_decode_group.
+XLA twin ds2i_tpu/engine/tile_executor.py:_decode_group, together with
+the JAX engine's pair branch around them (resident.py:
+_decode_weight_blocks and _decode_part's pad): the field-row gathers,
+the norm-cache den rows and the weight w = f / (f + den).
 
-`decode_pair_torch` is the plain PyTorch version: the CPU tests run it,
-and chip_smoke.py holds the CUDA kernel against it on the card.
-`decode_pair` is the wrapper the engine calls: a CPU tensor takes the
-plain version, a CUDA tensor launches csrc/pair_decode.cu (or raises).
+`decode_pair_torch` is the per-group plain building block; the CPU
+tests hold it to the Pallas kernel in interpret mode. A part decodes in
+one launch of csrc/pair_decode.cu over every group of the part, from
+the pair CTA table of the plan's PartLayout (ops/block_decode.py), and
+writes its docs32 and w32 block rows straight into the part's tensors.
+`pair_decode_part_torch` is that whole decode in plain PyTorch and
+`decode_pair_launch_torch` what one launch writes; both are used by the
+tests and chip_smoke.py, never by the CUDA path. The wrapper
+`decode_pair` (one launch, counted in `decode_pair.launches`) and
+`pair_decode_part` take those plain versions for CPU tensors only; on
+CUDA tensors they launch the kernel or raise.
 
 Words are int32 tensors holding the uint32 words' bits. The plain
 version widens them to int64 masked with 0xFFFFFFFF, so every shift and
@@ -22,6 +32,7 @@ from ..engine.tiles import (
     F_PREV_CUM, F_SEL_ADJ, F_WIN_BITOFF, F_WIN_LEN, F_WIN_WORD0, N_FIELDS,
 )
 from .segments import SEG_AO, SEG_EF, SEG_EF_STRICT, SEG_RB
+from . import block_decode  # its names are read at call time: it imports this module
 
 _M32 = 0xFFFFFFFF
 
@@ -119,54 +130,165 @@ def decode_pair_torch(docs_words, freqs_words, dfld, ffld, W, WL, T, num_docs):
     return doc.int(), torch.where(valid, fv - prev, 0).int()
 
 
-def _check_cuda_args(docs_words, freqs_words, dfld, ffld, W, WL, T):
-    dev = docs_words.device
-    tensors = [("docs_words", docs_words), ("dfld", dfld)]
-    if freqs_words is not None:
-        tensors += [("freqs_words", freqs_words), ("ffld", ffld)]
-    for name, t in tensors:
-        if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(
-                f"{name}: the kernel takes contiguous int32 tensors on {dev}, got "
-                f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
-    for name, w in (("docs_words", docs_words), ("freqs_words", freqs_words)):
-        if w is not None and (w.dim() != 1 or w.numel() == 0):
-            raise ValueError(f"{name} must be a non-empty 1-D word array")
-    if dfld.dim() != 2 or dfld.shape[1] != N_FIELDS:
-        raise ValueError(f"dfld must be (R, {N_FIELDS}), got {tuple(dfld.shape)}")
-    if freqs_words is not None and ffld.shape != dfld.shape:
-        raise ValueError(f"ffld {tuple(ffld.shape)} != dfld {tuple(dfld.shape)}")
-    if T not in (32, 64, 128):
-        raise ValueError(f"T must be 32, 64 or 128, got {T}")
-    if not (1 <= W <= 1023 and 0 <= WL <= 1023):
-        raise ValueError(f"W={W}, WL={WL} outside the group statics' range")
+BLOCK = 32
+WEIGHTS = (None, "presence", "bm25")  # what a part's decode writes beside the docids
 
 
-def decode_pair(docs_words, freqs_words, dfld, ffld, W, WL, T, num_docs):
-    """decode_pair_torch's contract. CPU tensors take the plain version;
-    CUDA tensors launch the hand-written kernel on the current stream
-    (one launch, counted in decode_pair.launches) or raise."""
+def _pair_blocks(docs_words, freqs_words, tiles_docs, tiles_freqs, ids, st, num_docs, weights,
+                 den_blocks, tile_gblk0):
+    """One group's (docs, w) as 32-slot block rows, the JAX pair branch:
+    docids with pads -> num_docs, and w None (weights None), presence
+    flags, or f / (f + den) with den the norm cache's rows, one f32 add and
+    one f32 divide, unmasked (a pad slot gives 0 / (0 + den))."""
+    _, W, WL, T = st
+    bm25 = weights == "bm25"
+    doc, freq = decode_pair_torch(
+        docs_words, freqs_words if bm25 else None, tiles_docs[ids],
+        tiles_freqs[ids] if bm25 else None, W, WL, T, num_docs)
+    doc = doc.reshape(-1, BLOCK)
+    if weights is None:
+        return doc, None
+    if weights == "presence":
+        return doc, torch.where(doc < num_docs, 1.0, 0.0)
+    f = freq.float().reshape(-1, BLOCK)
+    return doc, f / (f + block_decode.den_rows(den_blocks, tile_gblk0, ids, T))
+
+
+def _check_weights(weights):
+    if weights not in WEIGHTS:
+        raise ValueError(f"weights must be None, 'presence' or 'bm25', got {weights!r}")
+
+
+def pair_decode_part_torch(docs_words, freqs_words, tiles_docs, tiles_freqs, gtile_ids, layout,
+                           num_docs, weights, den_blocks=None, tile_gblk0=None, out_rows=None):
+    """The whole pair decode of a part in plain PyTorch (the JAX engine's
+    resident.py:_decode_weight_blocks pair branch and _decode_part's pad):
+    (docs32 int32, w32 f32 or None), (out_rows, 32) each, group by group
+    of layout.groups from decode_pair_torch. weights: None (docs only,
+    the norm cache), "presence" (1.0 where doc < num_docs) or "bm25"
+    (f / (f + den), den from the norm cache). Rows past the part's blocks
+    carry num_docs and weight 0."""
+    _check_weights(weights)
+    blocks = [_pair_blocks(docs_words, freqs_words, tiles_docs, tiles_freqs,
+                           gtile_ids[off:off + R], st, num_docs, weights, den_blocks, tile_gblk0)
+              for off, R, st in layout.groups]
+    docs32 = torch.cat([d for d, _ in blocks])
+    w32 = None if weights is None else torch.cat([w for _, w in blocks])
+    extra = (out_rows or len(docs32)) - len(docs32)
+    if extra > 0:
+        docs32 = torch.nn.functional.pad(docs32, (0, 0, 0, extra), value=num_docs)
+        w32 = None if w32 is None else torch.nn.functional.pad(w32, (0, 0, 0, extra))
+    return docs32, w32
+
+
+def decode_pair_launch_torch(launch, docs_words, freqs_words, tiles_docs, tiles_freqs, gtile, mode,
+                             num_docs, out, w=None, den_blocks=None, tile_gblk0=None):
+    """What one pair_decode launch writes, in plain PyTorch: for every
+    CTA-table row of `launch`, its rows' blocks of out (and of w in the
+    weighted modes "presence" and "bm25"), as pair_decode_part_torch's
+    groups give them. Consecutive rows that continue one group decode in
+    one call."""
+    weights = None if mode == "docs" else mode
+    host = launch.host
+    i = 0
+    while i < len(host):
+        W, WL, T, row0, n, blk0 = (int(x) for x in host[i])
+        bpt = T // BLOCK
+        j = i + 1
+        while (j < len(host) and tuple(int(x) for x in host[j, :3]) == (W, WL, T)
+               and host[j, 3] == row0 + n and host[j, 5] == blk0 + n * bpt):
+            n += int(host[j, 4])
+            j += 1
+        d, wv = _pair_blocks(docs_words, freqs_words, tiles_docs, tiles_freqs,
+                             gtile[row0:row0 + n], ("ef", W, WL, T), num_docs, weights,
+                             den_blocks, tile_gblk0)
+        out[blk0:blk0 + n * bpt] = d
+        if wv is not None:
+            w[blk0:blk0 + n * bpt] = wv
+        i = j
+    return out, w
+
+
+def decode_pair(launch, docs_words, freqs_words, tiles_docs, tiles_freqs, gtile, mode, num_docs,
+                out, w=None, den_blocks=None, tile_gblk0=None):
+    """One launch over a part: every ("ef", W, WL, T) group that `launch`
+    (PartLayout.launch("pair", True, device)) lists, written into out
+    (and w) as decode_pair_launch_torch writes them. mode: "docs",
+    "presence" or "bm25" (which also reads freqs_words, tiles_freqs,
+    den_blocks and tile_gblk0). CPU tensors take that plain version; CUDA
+    tensors launch csrc/pair_decode.cu once (counted in
+    decode_pair.launches) or raise."""
+    if mode not in ("docs", "presence", "bm25"):
+        raise ValueError(f"mode must be 'docs', 'presence' or 'bm25', got {mode!r}")
     if docs_words.device.type == "cpu":
-        return decode_pair_torch(docs_words, freqs_words, dfld, ffld, W, WL, T, num_docs)
+        return decode_pair_launch_torch(launch, docs_words, freqs_words, tiles_docs, tiles_freqs,
+                                        gtile, mode, num_docs, out, w, den_blocks, tile_gblk0)
     if docs_words.device.type != "cuda":
         raise ValueError(f"decode_pair runs on cuda or cpu, not {docs_words.device}")
-    _check_cuda_args(docs_words, freqs_words, dfld, ffld, W, WL, T)
-    lib = kernels.lib("pair_decode")
-    R = dfld.shape[0]
-    doc = torch.empty((R, T), dtype=torch.int32, device=docs_words.device)
-    freq = None if freqs_words is None else torch.empty_like(doc)
+    if launch.kernel != "pair":
+        raise ValueError(f"decode_pair got a CTA table of the {launch.kernel} kernel")
+    bm25 = mode == "bm25"
+    if bm25 and any(t is None for t in (freqs_words, tiles_freqs, den_blocks, tile_gblk0)):
+        raise ValueError("mode 'bm25' reads freqs_words, tiles_freqs, den_blocks and tile_gblk0")
+    if mode != "docs" and w is None:
+        raise ValueError(f"mode {mode!r} writes weights: w must be given")
+    block_decode._check_launch_args(launch, docs_words, [
+        ("docs_words", docs_words, torch.int32),
+        ("tiles_docs", tiles_docs, torch.int32), ("gtile", gtile, torch.int64),
+        ("out", out, torch.int32), ("w", w if mode != "docs" else None, torch.float32),
+        ("freqs_words", freqs_words if bm25 else None, torch.int32),
+        ("tiles_freqs", tiles_freqs if bm25 else None, torch.int32),
+        ("den_blocks", den_blocks if bm25 else None, torch.float32),
+        ("tile_gblk0", tile_gblk0 if bm25 else None, torch.int64),
+    ])
+    for name, t in (("tiles_docs", tiles_docs), ("tiles_freqs", tiles_freqs if bm25 else None)):
+        if t is not None and (t.dim() != 2 or t.shape[1] != N_FIELDS):
+            raise ValueError(f"{name} must be (rows, {N_FIELDS}), got {tuple(t.shape)}")
+    if bm25 and (freqs_words.dim() != 1 or freqs_words.numel() == 0):
+        raise ValueError("freqs_words must be a non-empty 1-D word array")
+    if not launch.n_cta:
+        return out, w
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    rc = lib.ds2i_pair_decode(
-        docs_words.data_ptr(), docs_words.numel(),
-        ptr(freqs_words), 0 if freqs_words is None else freqs_words.numel(),
-        dfld.data_ptr(), ptr(ffld),
-        R, W, WL, T, int(num_docs),
-        doc.data_ptr(), ptr(freq),
+    lib = kernels.lib("pair_decode")
+    rc = lib.ds2i_pair_decode_part(
+        docs_words.data_ptr(), docs_words.numel(), tiles_docs.data_ptr(), gtile.data_ptr(),
+        launch.dev.data_ptr(), launch.n_cta, launch.max_w, launch.max_t,
+        block_decode.MODES[mode], int(num_docs), out.data_ptr(), ptr(w) if mode != "docs" else None,
+        ptr(freqs_words) if bm25 else None, freqs_words.numel() if bm25 else 0,
+        ptr(tiles_freqs) if bm25 else None, ptr(den_blocks) if bm25 else None,
+        ptr(tile_gblk0) if bm25 else None,
         torch.cuda.current_stream(docs_words.device).cuda_stream,
     )
     kernels.check(lib, rc, "pair_decode launch")
     decode_pair.launches += 1
-    return doc, freq
+    return out, w
 
 
 decode_pair.launches = 0
+
+
+def pair_decode_part(docs_words, freqs_words, tiles_docs, tiles_freqs, gtile_ids, layout, num_docs,
+                     weights, den_blocks=None, tile_gblk0=None, out_rows=None):
+    """pair_decode_part_torch's contract. CPU tensors take that plain
+    version; CUDA tensors make one decode_pair launch writing straight
+    into the part's tensors (rows past the part's blocks filled with
+    num_docs and weight 0 beforehand), or raise."""
+    _check_weights(weights)
+    if not layout.pair:
+        raise ValueError("pair_decode_part takes the layout of an EF-family (pair-mode) part")
+    if docs_words.device.type == "cpu":
+        return pair_decode_part_torch(docs_words, freqs_words, tiles_docs, tiles_freqs, gtile_ids,
+                                      layout, num_docs, weights, den_blocks, tile_gblk0, out_rows)
+    if docs_words.device.type != "cuda":
+        raise ValueError(f"pair_decode_part runs on cuda or cpu, not {docs_words.device}")
+    dev = docs_words.device
+    rows = max(out_rows or layout.nb_d, layout.nb_d)
+    docs32 = torch.empty((rows, BLOCK), dtype=torch.int32, device=dev)
+    w32 = None if weights is None else torch.empty((rows, BLOCK), dtype=torch.float32, device=dev)
+    if rows > layout.nb_d:
+        docs32[layout.nb_d:].fill_(num_docs)
+        if w32 is not None:
+            w32[layout.nb_d:].zero_()
+    decode_pair(layout.launch("pair", True, dev), docs_words, freqs_words, tiles_docs, tiles_freqs,
+                gtile_ids, weights or "docs", num_docs, docs32, w32, den_blocks, tile_gblk0)
+    return docs32, w32

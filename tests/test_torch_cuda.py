@@ -1,7 +1,7 @@
-"""The port on the card: each CUDA kernel (pair decode, and the
-part-level OptPFor and interpolative block decode, launch by launch and
-as a whole part) against its plain PyTorch version, and ResidentEngine
-on CUDA against the same engine on the CPU.
+"""The port on the card: each CUDA kernel (the part-level EF pair
+decode, OptPFor and interpolative block decode, launch by launch and as
+a whole part) against its plain PyTorch version, and ResidentEngine on
+CUDA against the same engine on the CPU.
 
 Every test here is marked `cuda` and skips where torch.cuda.is_available()
 is False. The card's machine has no jax, so run them there without the
@@ -21,10 +21,12 @@ from ds2i_torch.host import (
 )
 from ds2i_torch.ops import block_decode, pair_decode
 from ds2i_torch.ops.block_decode import (
-    KERNELS, SplitLayout, decode_launch_torch, interp_decode, optpfor_decode, split_decode_part,
+    KERNELS, PartLayout, decode_launch_torch, interp_decode, optpfor_decode, split_decode_part,
     split_decode_part_torch,
 )
-from ds2i_torch.ops.pair_decode import decode_pair, decode_pair_torch
+from ds2i_torch.ops.pair_decode import (
+    decode_pair, decode_pair_launch_torch, pair_decode_part, pair_decode_part_torch,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -52,38 +54,69 @@ def build(coll_base, name):
     return b.build()
 
 
-@pytest.mark.parametrize("name", ["ef", "single", "uniform", "opt"])
+EF_TYPES = ["ef", "single", "uniform", "opt"]
+
+
+def _same_bits(a, b):
+    """Equal dtypes and shapes and equal bits (-0.0 != +0.0)."""
+    assert a.dtype == b.dtype and a.shape == b.shape
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", EF_TYPES)
 def test_kernel_matches_plain_on_every_group(cuda, coll, name):
-    """Both streams, and the docs-only form the norm cache uses, bit for
-    bit; one counted launch per call."""
+    """pair_decode's one launch over every tile (all groups), in each mode
+    the engine uses (docs alone, for the norm cache; presence flags; BM25
+    weights), against decode_pair_launch_torch on the card, bit for bit;
+    one counted launch per call."""
     eng = ResidentEngine(build(coll, name), device=cuda)
-    s = eng.state
-    groups, gids, _, _, _ = eng._order_groups(
-        np.arange(eng.pad_tile), eng.tile_gid, eng.group_statics)
-    ids_all = torch.from_numpy(gids.astype(np.int64)).to(cuda)
-    for off, R, (_, W, WL, T) in groups:
-        df, ff = s.tiles_docs[ids_all[off:off + R]], s.tiles_freqs[ids_all[off:off + R]]
-        before = pair_decode.decode_pair.launches
-        doc, freq = decode_pair(s.docs_words, s.freqs_words, df, ff, W, WL, T, eng.num_docs)
-        doc_only, none = decode_pair(s.docs_words, None, df, None, W, WL, T, eng.num_docs)
-        torch.cuda.synchronize()
-        assert pair_decode.decode_pair.launches == before + 2
-        assert none is None
-        ref_doc, ref_freq = decode_pair_torch(
-            s.docs_words, s.freqs_words, df, ff, W, WL, T, eng.num_docs)
-        torch.testing.assert_close(doc, ref_doc, rtol=0, atol=0)
-        torch.testing.assert_close(freq, ref_freq, rtol=0, atol=0)
-        torch.testing.assert_close(doc_only, ref_doc, rtol=0, atol=0)
+    eng._ensure_norm_cache()
+    s, nd = eng.state, eng.num_docs
+    part = eng.all_tiles_part()
+    launch = part.layout.launch("pair", True, cuda)
+    assert launch.n_cta > 0
+    for mode in ("docs", "presence", "bm25"):
+        outs = []
+        for fn in (decode_pair, decode_pair_launch_torch):
+            out = torch.full((part.layout.nb_d, 32), -7, dtype=torch.int32, device=cuda)
+            w = torch.full((part.layout.nb_d, 32), -7.0, device=cuda)
+            before = pair_decode.decode_pair.launches
+            fn(launch, s.docs_words, s.freqs_words, s.tiles_docs, s.tiles_freqs, part.gtile_ids,
+               mode, nd, out, w, s.den_blocks, s.tile_gblk0)
+            torch.cuda.synchronize()
+            assert pair_decode.decode_pair.launches == before + (fn is decode_pair)
+            outs.append((out, w))
+        (go, gw), (po, pw) = outs
+        _same_bits(go, po)
+        _same_bits(gw, pw)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda, coll):
     eng = ResidentEngine(build(coll, "opt"), device=cuda)
-    s = eng.state
-    df, ff = s.tiles_docs[:8], s.tiles_freqs[:8]
+    s, nd = eng.state, eng.num_docs
+    part = eng.all_tiles_part()
+    launch = part.layout.launch("pair", True, cuda)
+    out = torch.empty((part.layout.nb_d, 32), dtype=torch.int32, device=cuda)
+    args = (s.freqs_words, s.tiles_docs, s.tiles_freqs, part.gtile_ids, "docs", nd)
     with pytest.raises(ValueError, match="int32"):
-        decode_pair(s.docs_words.long(), s.freqs_words, df, ff, 4, 4, 32, eng.num_docs)
-    with pytest.raises(ValueError, match="T must be"):
-        decode_pair(s.docs_words, s.freqs_words, df, ff, 4, 4, 256, eng.num_docs)
+        decode_pair(launch, s.docs_words.long(), *args, out)
+    with pytest.raises(ValueError, match="int64"):
+        decode_pair(launch, s.docs_words, *args[:3], part.gtile_ids.int(), "docs", nd, out)
+    with pytest.raises(ValueError, match="CTA table lies on"):
+        decode_pair(part.layout.launch("pair", True, "cpu"), s.docs_words, *args, out)
+    with pytest.raises(ValueError, match="launch writes blocks"):
+        decode_pair(launch, s.docs_words, *args, out[:-1])
+    with pytest.raises(ValueError, match="w must be given"):
+        decode_pair(launch, s.docs_words, *args[:4], "presence", nd, out)
+    with pytest.raises(ValueError, match="CTA table of the interp"):
+        decode_pair(PartLayout(((0, 8, ("interp", 4, 32)),)).launch("interp", True, cuda),
+                    s.docs_words, *args, out)
+    for st in (("ef", 4, 4, 256), ("ef", 4, 4, 16), ("ef", 4096, 4, 32), ("ef", 0, 4, 32),
+               ("ef", 4, 2048, 32), ("ef", 4, -1, 32)):
+        with pytest.raises(ValueError, match="pair_decode takes"):
+            PartLayout(((0, 8, st),))
 
 
 @pytest.mark.parametrize("name", ["block_optpfor", "block_interpolative"])
@@ -130,12 +163,14 @@ def test_block_kernels_match_plain_on_every_group(cuda, coll, name):
 
 
 @pytest.mark.parametrize("weights", ["bm25", "presence", None])
-@pytest.mark.parametrize("name", ["block_optpfor", "block_interpolative"])
+@pytest.mark.parametrize("name", EF_TYPES + ["block_optpfor", "block_interpolative"])
 def test_part_decode_matches_plain_on_every_part(cuda, coll, name, weights):
-    """split_decode_part on the card against split_decode_part_torch on
-    the card, bit for bit, on every part of a several-part plan and over
-    all tiles; at most one launch per kernel and stream, freqs only for
-    BM25 weights (None is the norm cache's docs-only decode)."""
+    """pair_decode_part (EF family) or split_decode_part (block indexes)
+    on the card against its plain version on the card, bit for bit, on
+    every part of a several-part plan and over all tiles. Pair mode: one
+    launch a part; split mode: at most one launch per kernel and stream,
+    freqs only for BM25 weights (None is the norm cache's docs-only
+    decode)."""
     eng = ResidentEngine(build(coll, name), device=cuda, max_part_slots=1 << 13,
                          max_part_queries=32)
     eng._ensure_norm_cache()
@@ -143,10 +178,24 @@ def test_part_decode_matches_plain_on_every_part(cuda, coll, name, weights):
     plan = eng.prepare(read_queries(coll + ".queries"), k=10, ops=("and",))
     assert len(plan["plans"]) > 1
     put = lambda a: torch.from_numpy(np.asarray(a).astype(np.int64)).to(cuda)  # noqa: E731
-    parts = [(put(p["gtile_ids"]), put(p["gtile_f"]), put(p["blkperm"]), p["split"])
+    parts = [(put(p["gtile_ids"]), put(p["gtile_f"]), put(p["blkperm"]), p["layout"])
              for p in plan["plans"]]
     for gt, gf, bp, lay in parts + [eng.all_tiles_part()[:4]]:
         rows = 1 << max(lay.nb_d - 1, 0).bit_length()
+        if name in EF_TYPES:
+            args = (s.docs_words, s.freqs_words, s.tiles_docs, s.tiles_freqs, gt, lay, nd,
+                    weights, s.den_blocks, s.tile_gblk0, rows)
+            before = pair_decode.decode_pair.launches
+            got = pair_decode_part(*args)
+            torch.cuda.synchronize()
+            assert pair_decode.decode_pair.launches == before + 1
+            exp = pair_decode_part_torch(*args)
+            _same_bits(got[0], exp[0])
+            if weights is None:
+                assert got[1] is None and exp[1] is None
+            else:
+                _same_bits(got[1], exp[1])
+            continue
         args = (s.docs_words, s.tiles_docs, s.tiles_freqs, gt, gf, bp, lay, nd, weights,
                 s.den_blocks, s.tile_gblk0, rows)
         before = (optpfor_decode.launches, interp_decode.launches)
@@ -184,11 +233,11 @@ def test_block_wrappers_reject_what_the_kernels_do_not_take(cuda, coll):
         optpfor_decode(lay.launch("optpfor", True, "cpu"), s.docs_words, s.tiles_docs, gt,
                        "docs", nd, out)
     with pytest.raises(ValueError, match="optpfor_decode takes"):
-        SplitLayout(((0, 8, ("optp", 5, 3, 128)),))
+        PartLayout(((0, 8, ("optp", 5, 3, 128)),))
     with pytest.raises(NotImplementedError, match="Simple16"):
-        SplitLayout(((0, 8, ("opt", 5, 4, 128)),))
+        PartLayout(((0, 8, ("opt", 5, 4, 128)),))
     with pytest.raises(ValueError, match="interp_decode takes"):
-        SplitLayout(((0, 8, ("interp", 5, 32)),))
+        PartLayout(((0, 8, ("interp", 5, 32)),))
 
 
 @pytest.mark.parametrize("name", ["ef", "opt", "block_optpfor", "block_interpolative"])

@@ -196,17 +196,39 @@ def test_window_at_stream_end_clamps(coll):
 
 
 def test_cpu_wrapper_takes_plain_version_without_counting(coll):
+    """On CPU tensors the part-level wrapper decode_pair (one launch over
+    a part on the card) writes what decode_pair_launch_torch writes, which
+    is decode_pair_torch's decode of each group, and counts nothing."""
     index = build(coll, "opt")
     eng = ResidentEngine(index, device="cpu")
-    s = eng.state
-    ids = torch.arange(min(64, eng.pad_tile))
-    df, ff = s.tiles_docs[ids], s.tiles_freqs[ids]
+    eng._ensure_norm_cache()
+    s, nd = eng.state, eng.num_docs
+    part = eng.all_tiles_part()
+    lay = part.layout
+    launch = lay.launch("pair", True, "cpu")
     before = pair_decode.decode_pair.launches
-    a = decode_pair(s.docs_words, s.freqs_words, df, ff, 64, 64, 128, eng.num_docs)
-    b = decode_pair_torch(s.docs_words, s.freqs_words, df, ff, 64, 64, 128, eng.num_docs)
+    outs = {}
+    for mode in ("docs", "presence", "bm25"):
+        out = torch.full((lay.nb_d, 32), -7, dtype=torch.int32)
+        w = torch.full((lay.nb_d, 32), -7.0)
+        got = decode_pair(launch, s.docs_words, s.freqs_words, s.tiles_docs, s.tiles_freqs,
+                          part.gtile_ids, mode, nd, out, w, s.den_blocks, s.tile_gblk0)
+        assert got[0] is out and got[1] is w
+        outs[mode] = (out, w)
     assert pair_decode.decode_pair.launches == before
-    torch.testing.assert_close(a[0], b[0], rtol=0, atol=0)
-    torch.testing.assert_close(a[1], b[1], rtol=0, atol=0)
-    docs_only, none = decode_pair(s.docs_words, None, df, None, 64, 64, 128, eng.num_docs)
-    assert none is None
-    torch.testing.assert_close(docs_only, b[0], rtol=0, atol=0)
+    for off, R, (_, W, WL, T) in lay.groups:
+        ids = part.gtile_ids[off:off + R]
+        doc, freq = decode_pair_torch(s.docs_words, s.freqs_words, s.tiles_docs[ids],
+                                      s.tiles_freqs[ids], W, WL, T, nd)
+        blk = slice(sum(Rg * sg[-1] // 32 for o, Rg, sg in lay.groups if o < off), None)
+        d = outs["docs"][0][blk][:R * T // 32].reshape(R, T)
+        torch.testing.assert_close(d, doc, rtol=0, atol=0)
+        torch.testing.assert_close(outs["bm25"][0][blk][:R * T // 32].reshape(R, T), doc,
+                                   rtol=0, atol=0)
+        f = freq.float()
+        den = s.den_blocks[s.tile_gblk0[ids][:, None] + torch.arange(T // 32)].reshape(R, T)
+        torch.testing.assert_close(outs["bm25"][1][blk][:R * T // 32].reshape(R, T),
+                                   f / (f + den), rtol=0, atol=0)
+        torch.testing.assert_close(outs["presence"][1][blk][:R * T // 32].reshape(R, T),
+                                   torch.where(doc < nd, 1.0, 0.0), rtol=0, atol=0)
+    assert (outs["docs"][1] == -7.0).all(), "docs mode writes no weights"

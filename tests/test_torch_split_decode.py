@@ -23,7 +23,7 @@ from ds2i_torch.engine import ResidentEngine
 from ds2i_torch.engine.tiles import F_NVALS
 from ds2i_torch.ops import block_decode
 from ds2i_torch.ops.block_decode import (
-    K1_ROWS, K2_ROWS, KERNELS, SplitLayout, split_decode_part, split_decode_part_torch,
+    K1_ROWS, K2_ROWS, KERNELS, PartLayout, split_decode_part, split_decode_part_torch,
 )
 
 from test_torch_host_copy import assert_same_walk, build_index, build_wdata
@@ -61,7 +61,7 @@ def _part_args(eng, p):
     s = eng.state
     t = lambda a: torch.from_numpy(np.asarray(a).astype(np.int64))  # noqa: E731
     return (s.docs_words, s.tiles_docs, s.tiles_freqs, t(p["gtile_ids"]), t(p["gtile_f"]),
-            t(p["blkperm"]), p["split"])
+            t(p["blkperm"]), p["layout"])
 
 
 @pytest.mark.parametrize("ranked", [True, False])
@@ -76,7 +76,7 @@ def test_part_decode_equals_jax_decode_part(engines, name, ranked):
     for p, jp in zip(plan["plans"], jplan["plans"]):
         assert p["groups"] == jp["groups"] and p["groups_f"] == jp["groups_f"]
         rows = 1
-        while rows < p["split"].nb_d:
+        while rows < p["layout"].nb_d:
             rows *= 2
         docs32, w32 = split_decode_part_torch(
             *_part_args(port, p), port.num_docs, "bm25" if ranked else "presence",
@@ -137,7 +137,7 @@ def test_cta_tables_cover_every_row_once(engines, name):
     plan = port.prepare(qs, k=10, ops=("and",))
     kinds = set()
     for p in plan["plans"]:
-        lay = p["split"]
+        lay = p["layout"]
         assert lay.groups == p["groups"] and lay.groups_f == p["groups_f"]
         for is_docs in (True, False):
             for kernel in KERNELS:
@@ -198,10 +198,10 @@ def test_all_tiles_part(engines, name):
         assert gtile.dtype == torch.int64 and sorted(ids[ids < nt]) == list(range(nt))
     docs32, _ = split_decode_part_torch(
         s.docs_words, s.tiles_docs, s.tiles_freqs, part.gtile_ids, part.gtile_f, part.blkperm,
-        part.split, port.num_docs, None)
-    freq = torch.empty((part.split.nb_f, 32), dtype=torch.int32)
+        part.layout, port.num_docs, None)
+    freq = torch.empty((part.layout.nb_f, 32), dtype=torch.int32)
     for kernel in KERNELS:
-        block_decode.WRAPPERS[kernel](part.split.launch(kernel, False, "cpu"), s.docs_words,
+        block_decode.WRAPPERS[kernel](part.layout.launch(kernel, False, "cpu"), s.docs_words,
                                       s.tiles_freqs, part.gtile_f, "freqs", port.num_docs, freq)
     nvals = port.tiles.docs[:, F_NVALS]
     d, f = docs32.numpy().reshape(-1), freq.numpy().reshape(-1)
@@ -223,6 +223,6 @@ def test_kernel_of_rejects_what_the_kernels_do_not_take():
         block_decode._kernel_of(("interp", 5, 32))
     with pytest.raises(NotImplementedError, match="item 8"):
         block_decode._kernel_of(("var", 24, 128))
-    empty = SplitLayout(((0, 8, ("interp", 4, 32)),))
+    empty = PartLayout(((0, 8, ("interp", 4, 32)),))
     assert empty.nb_d == 8 and len(empty.tables["interp", True]) == 1
     assert len(empty.tables["optpfor", True]) == 0 and empty.nb_f == 0
