@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the ds2i_torch port on one CUDA card.
 
-Drives the port's two main paths once at bench.py's default scale:
+Drives the port's three main paths once at bench.py's default scale:
 top-10 BM25 ranked_and over the deterministic 10k-doc / 2M-posting
 collection with its 35k-query log, first over a partitioned Elias-Fano
 (`opt`) index in pair mode, then over a `block_optpfor` index in split
-mode (bench.py's default index type).
+mode (bench.py's default index type), exhaustive and then block-max
+pruned (bench.py's default op, and_skip).
 
   1. card name and power limit (nvidia-smi), torch and CUDA versions
   2. build the CUDA kernels from csrc/ (one nvcc per source, all at
@@ -32,7 +33,9 @@ mode (bench.py's default index type).
      pair_decode_part_torch, bit for bit; one pass's launches timed
      through the wrapper and alone, beside their bound
   7. oracle phase: the first 300 queries against the numpy oracle
-     (counts exact, top-10 scores within rtol 1e-3)
+     (counts exact, top-10 scores within rtol 1e-3); then
+     ranked_and(prune=True) against the exhaustive ranked_and on them
+     (pair mode's block-max decode pass and probe)
   block_optpfor path (split mode, kernels optpfor_decode and
   interp_decode, one launch per kernel and stream of a part): the kernel
   phase per kernel over every tile (each launch mode against its plain
@@ -40,8 +43,22 @@ mode (bench.py's default index type).
   the slice phase (launches a pass: at most 2 a part per kernel), the
   part phase (every part of the slice's plan against the plain version;
   each kernel's launches of one pass timed) and the oracle phase
-  8. block_interpolative: a smaller oracle-only run (100 queries)
-  9. the kernels' JSON line, then {"ok": true, "device": {...}} last
+  block_optpfor and_skip path (bench.py's default: block-max pruned
+  ranked_and; kernels blockmax, optpfor_decode and interp_decode):
+  8. every count set to 0, then build_blockmax over the collection
+     (blockmax in planes form), prepare(prune=True, ops=("and",)) with
+     its probe on the card (its timings, the probe's rows), 1 warmup + 9
+     timed passes; the directory entries kept against the exhaustive
+     plan's; the whole query log against the exhaustive pass, query by
+     query (equal lengths, rtol 1e-3, no mismatch); _ensure_blockmax on a
+     second engine (every tile decoded, rows form), every pruning table
+     byte-equal to build_blockmax's; wand and maxscore against ranked_or
+     on 2,000 queries
+  9. blockmax phase: the kernel against blockmax_rows_torch bit for bit
+     in both forms over every block, timed through the wrapper, alone
+     and plain, beside its bound by bytes
+  10. block_interpolative: a smaller oracle-only run (100 queries)
+  11. the kernels' JSON line, then {"ok": true, "device": {...}} last
 
 Exits non-zero, printing no result, without a CUDA device or when any
 check fails. Scale: DS2I_BENCH_DOCS / _POSTINGS / _TERMS / _QUERIES as
@@ -67,6 +84,7 @@ POSTINGS = int(os.environ.get("DS2I_BENCH_POSTINGS", 2_000_000))
 NUM_TERMS = int(os.environ.get("DS2I_BENCH_TERMS", 110_000))
 NUM_QUERIES = int(os.environ.get("DS2I_BENCH_QUERIES", 35_000))
 ORACLE_QUERIES = 300
+OR_PRUNE_QUERIES = 2000
 INTERP_ORACLE_QUERIES = 100
 RTOL = 1e-3  # the reference's ranked-test tolerance (test_ranked_queries.cpp:52)
 PASSES = 9
@@ -664,17 +682,18 @@ def part_kernel_phase(eng, plan, code_words):
             f"{bound_by} ({nbytes} bytes)")
 
 
-def slice_phase(eng, queries, wrappers, tag):
-    """A main path: prepare the whole log, 1 warmup + PASSES timed
-    passes. Every wrapper's launch count must rise in the timed passes;
-    a pass launches pair_decode at most once a part, and each block
-    kernel at most twice a part (once per stream). Returns the plan and
-    the last pass's results."""
+def slice_phase(eng, queries, wrappers, tag, prune=False):
+    """A main path: prepare the whole log (prune: the and_skip plan, its
+    probe run on the card), 1 warmup + PASSES timed passes. Every
+    wrapper's launch count must rise in the timed passes; a pass launches
+    pair_decode at most once a part, and each block kernel at most twice a
+    part (once per stream). Returns the plan and the last pass's
+    results."""
     import torch
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    plan = eng.prepare(queries, k=10, ops=("and",))
+    plan = eng.prepare(queries, k=10, ops=("and",), prune=prune)
     t1 = time.perf_counter()
     eng.execute(plan)  # warmup: builds the norm cache, uploads the plan
     torch.cuda.synchronize()
@@ -682,6 +701,10 @@ def slice_phase(eng, queries, wrappers, tag):
     ngroups = sum(len(p["groups"]) + len(p["groups_f"]) for p in plan["plans"])
     log(f"{tag} slice phase: prepare {t1 - t0:.2f} s ({len(plan['plans'])} parts, "
         f"{ngroups} decode groups); warmup pass {t2 - t1:.2f} s")
+    if prune:
+        log(f"{tag} slice phase: prepare timings (s): "
+            f"{ {k: round(v, 4) for k, v in plan['timings'].items()} }; the AND probe ran "
+            f"{plan['probe_rows']} of {len(queries)} rows")
     times = []
     launches0 = [w.launches for w in wrappers]
     for _ in range(PASSES):
@@ -702,7 +725,8 @@ def slice_phase(eng, queries, wrappers, tag):
             raise AssertionError(f"{name}: {n / PASSES} launches a pass, more than {per_part} a "
                                  f"part")
     us = [x / len(queries) * 1e6 for x in times]
-    log(f"{tag} slice phase: exhaustive ranked_and top-10, {len(queries)} queries, {PASSES} "
+    op = "and_skip (pruned) ranked_and" if prune else "exhaustive ranked_and"
+    log(f"{tag} slice phase: {op} top-10, {len(queries)} queries, {PASSES} "
         f"passes: median {statistics.median(us):.4f} us/query (min {min(us):.4f}, max "
         f"{max(us):.4f}); pass seconds {[round(x, 4) for x in times]}; launches in the timed "
         f"passes: {timed}")
@@ -711,26 +735,33 @@ def slice_phase(eng, queries, wrappers, tag):
     return plan, res
 
 
-def main_path(eng, queries, path_kernels, tag):
+def main_path(eng, queries, path_kernels, tag, prune=False, before=None):
     """Drive one main path with every kernel's launch count set to 0 just
-    before it; path_kernels is [(JSON entry, wrapper)] of the kernels the
-    path must launch, and each entry takes its count read just after."""
-    from ds2i_torch.ops import block_decode, pair_decode
+    before it: before() (if given), then the slice phase. path_kernels is
+    [(JSON entry or None, wrapper)] of the kernels the path must launch;
+    each entry takes its count read just after, and the kernels other than
+    blockmax (which runs only in before()) must launch in the timed passes.
+    Returns the plan and the last pass's results."""
+    from ds2i_torch.ops import block_decode, blockmax, pair_decode
 
     all_wrappers = (pair_decode.decode_pair, block_decode.optpfor_decode,
-                    block_decode.interp_decode)
+                    block_decode.interp_decode, blockmax.blockmax_rows)
     for w in all_wrappers:
         w.launches = 0
-    plan, res = slice_phase(eng, queries, [w for _, w in path_kernels], tag)
+    if before is not None:
+        before()
+    plan, res = slice_phase(eng, queries, [w for _, w in path_kernels
+                                           if w is not blockmax.blockmax_rows], tag, prune)
     log(f"{tag} slice phase: launches over the main path: "
         f"{ {w.__name__: w.launches for w in all_wrappers} }")
     for entry, w in path_kernels:
-        entry["launches"] = w.launches
+        if entry is not None:
+            entry["launches"] = w.launches
         if w.launches <= 0:
-            raise AssertionError(f"the {tag} main path never launched the CUDA {entry['name']}")
+            raise AssertionError(f"the {tag} main path never launched the CUDA {w.__name__}")
     check_results(res, len(queries))
     decode_stage_phase(eng, plan, tag)
-    return plan
+    return plan, res
 
 
 def decode_stage_phase(eng, plan, tag):
@@ -793,6 +824,165 @@ def oracle_phase(eng, index, wdata, queries, n, tag):
         f"within rtol {RTOL} ({time.perf_counter() - t0:.1f} s)")
 
 
+BLOCKMAX_FIELDS = (
+    "wmax_blk", "dmax_blk", "dmin_blk", "gblk0", "tile_of_gblk", "list_gblk0",
+    "list_wmax", "_kth_vals", "_kth_start", "rank_blk", "_blk_dlo",
+    "_dmax_keys", "_dlo_keys", "_pyr", "_pyr_off", "_pyr_q",
+    "is_short", "_short_keys", "_short_w",
+)
+
+
+def topk_mismatches(got, exp):
+    """Indices of queries whose top-k lists differ in length or in a score
+    beyond rtol RTOL."""
+    return [i for i, (g, e) in enumerate(zip(got, exp))
+            if len(g) != len(e) or (e and not np.allclose(g, e, rtol=RTOL, atol=0))]
+
+
+def dir_blocks(plan):
+    """Directory entries (query row, block) of a plan."""
+    return sum(int((b["dir"] != p["sent_dir"]).sum()) for p in plan["plans"] for b in p["buckets"])
+
+
+def and_skip_path(eng, index, coll, wdata, queries, exhaustive_plan, exhaustive_res):
+    """bench.py's default path on the block_optpfor engine: build_blockmax
+    over the collection (blockmax in planes form), prepare(prune=True,
+    ops=("and",)) with its probe on the card, 1 warmup + PASSES timed
+    passes, counts set to 0 before build_blockmax. Then: the decode pass
+    (_ensure_blockmax, rows form) on a second engine, every pruning table
+    byte-equal to the collection pass's; the full log against the
+    exhaustive ranked_and of the same engine; wand and maxscore against
+    ranked_or. Returns the decode-pass engine (for blockmax_phase) and
+    blockmax's JSON entry (launches from this path, the rest filled by
+    blockmax_phase)."""
+    import torch
+
+    from ds2i_torch.ops import block_decode, blockmax
+
+    entry = {"name": "blockmax", "route": "cuda", "source": "ds2i_torch/csrc/blockmax.cu",
+             "replaces": "ds2i_tpu/engine/resident.py:358"}
+
+    def build():
+        t0 = time.perf_counter()
+        eng.build_blockmax(coll)
+        torch.cuda.synchronize()
+        log(f"and_skip: build_blockmax over the collection {time.perf_counter() - t0:.2f} s "
+            f"({len(eng.wmax_blk)} blocks, {blockmax.blockmax_rows.launches} blockmax launches, "
+            f"planes form)")
+
+    plan, res = main_path(eng, queries, [(entry, blockmax.blockmax_rows),
+                                         (None, block_decode.optpfor_decode),
+                                         (None, block_decode.interp_decode)],
+                          "block_optpfor and_skip", prune=True, before=build)
+    kept, full = dir_blocks(plan), dir_blocks(exhaustive_plan)
+    log(f"and_skip: {len(plan['plans'])} parts; directory entries kept {kept} of the exhaustive "
+        f"plan's {full} ({kept / max(full, 1):.4f}); decode groups "
+        f"{sum(len(p['groups']) + len(p['groups_f']) for p in plan['plans'])}")
+
+    # the full log: pruned against exhaustive, query by query
+    got = [eng._topk_list(r[3]) for r in res]
+    exp = [eng._topk_list(r[3]) for r in exhaustive_res]
+    bad = topk_mismatches(got, exp)
+    log(f"and_skip: full-log identity over {len(queries)} queries: {len(bad)} mismatches against "
+        f"the exhaustive ranked_and (equal lengths, rtol {RTOL}); {sum(map(len, got))} results")
+    if bad:
+        raise AssertionError(f"and_skip differs from the exhaustive ranked_and on queries "
+                             f"{bad[:10]}")
+
+    # the decode pass on a second engine: byte-equal tables
+    dec = start_engine(index, wdata)
+    n0 = blockmax.blockmax_rows.launches
+    t0 = time.perf_counter()
+    dec._ensure_blockmax()
+    torch.cuda.synchronize()
+    log(f"and_skip: _ensure_blockmax (every tile decoded, rows form) on a second engine "
+        f"{time.perf_counter() - t0:.2f} s ({blockmax.blockmax_rows.launches - n0} blockmax "
+        f"launches, norm cache included)")
+    for name in BLOCKMAX_FIELDS:
+        a, b = np.asarray(getattr(dec, name)), np.asarray(getattr(eng, name))
+        if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError(f"{name}: the decode pass and build_blockmax differ")
+    log(f"and_skip: all {len(BLOCKMAX_FIELDS)} pruning tables byte-equal between the decode pass "
+        f"and build_blockmax")
+
+    # OR pruning against the exhaustive ranked_or
+    qs = queries[:OR_PRUNE_QUERIES]
+    t0 = time.perf_counter()
+    exact = eng.ranked_or(qs, k=10)
+    for op in ("wand", "maxscore"):
+        bad = topk_mismatches(getattr(eng, op)(qs, k=10), exact)
+        if bad:
+            raise AssertionError(f"{op} differs from ranked_or on queries {bad[:10]}")
+    log(f"and_skip: wand and maxscore equal ranked_or on {len(qs)} queries "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return dec, entry
+
+
+def blockmax_phase(eng, dec, coll, entry):
+    """The blockmax kernel against blockmax_rows_torch on the card, bit for
+    bit, over every block in both forms: rows form over the decode pass's
+    BM25 rows of every tile (dec), planes form over the collection's slot
+    planes; each timed through the wrapper, alone and plain, beside its
+    bound by bytes: each row's docs and w (rows) or docs and freqs
+    (planes) read once, norm_den once, wmax, dmax and dmin written (and
+    the w plane, planes form)."""
+    import torch
+
+    from ds2i_torch.engine import resident
+    from ds2i_torch.ops.blockmax import blockmax_rows, blockmax_rows_torch
+
+    nd = eng.num_docs
+    docs32, w32, _, _, _ = resident._decode_slots_step(dec.state, dec.all_tiles_part(), nd)
+    dp, fp = eng._collection_planes(coll)
+    planes = (torch.from_numpy(dp).cuda(), torch.from_numpy(fp).cuda(), eng.state.norm_den)
+    max_err, out = 0.0, {}
+    for form, (d, v, den) in (("rows", (docs32, w32, None)), ("planes", planes)):
+        got, exp = blockmax_rows(d, v, nd, den), blockmax_rows_torch(d, v, nd, den)
+        torch.cuda.synchronize()
+        for g, e in zip(got, exp):
+            if (g is None) != (e is None) or (g is not None and not _same_bits(g, e)):
+                raise AssertionError(f"blockmax ({form} form) differs from blockmax_rows_torch")
+            if g is not None:
+                max_err = max(max_err, float((g.double() - e.double()).abs().max()))
+        rows = d.shape[0]
+        nbytes = rows * (256 + 12) + (rows * 128 + 4 * nd if den is not None else 0)
+        ms = cuda_ms(lambda: blockmax_rows(d, v, nd, den))
+        dev_ms = device_only_ms(lambda: blockmax_rows(d, v, nd, den))
+        plain_ms = cuda_ms(lambda: blockmax_rows_torch(d, v, nd, den))
+        bound_ms, bound_by = bound(nbytes)
+        out[form] = (ms, plain_ms, bound_ms, bound_by)
+        what = "the decode pass, every tile" if den is None else "the collection, every block"
+        log(f"blockmax phase: {form} form, {rows} rows ({what}): "
+            f"CUDA == plain bit for bit; kernel {ms:.4f} ms through the wrapper, {fmt_ms(dev_ms)} "
+            f"alone, plain PyTorch {plain_ms:.4f} ms (median of 5); bound {bound_ms:.4f} ms by "
+            f"{bound_by} ({nbytes} bytes)")
+    ms, plain_ms, bound_ms, bound_by = out["planes"]  # the form of the main path's launches
+    entry.update({"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                  "bound_by": bound_by,
+                  # no single PyTorch call takes the masked row max, the masked
+                  # docid max and the first slot together
+                  "library_ms": None})
+    return entry
+
+
+def opt_prune_phase(eng, queries):
+    """ranked_and(prune=True) on the `opt` engine (the decode pass in pair
+    mode, its probe through pair_decode) against its exhaustive
+    ranked_and."""
+    from ds2i_torch.ops import blockmax, pair_decode
+
+    qs = queries[:ORACLE_QUERIES]
+    n0, b0 = pair_decode.decode_pair.launches, blockmax.blockmax_rows.launches
+    t0 = time.perf_counter()
+    bad = topk_mismatches(eng.ranked_and(qs, k=10, prune=True), eng.ranked_and(qs, k=10))
+    if bad:
+        raise AssertionError(f"opt: pruned ranked_and differs from exhaustive on queries {bad[:10]}")
+    log(f"opt prune phase: ranked_and(prune=True) equals the exhaustive ranked_and on {len(qs)} "
+        f"queries ({time.perf_counter() - t0:.1f} s; pair_decode launches "
+        f"{pair_decode.decode_pair.launches - n0}, blockmax {blockmax.blockmax_rows.launches - b0})")
+
+
+
 def main():
     import torch
 
@@ -821,20 +1011,26 @@ def main():
     index = build_index(coll, "opt")
     eng = start_engine(index, wdata)
     pair_entry = kernel_phase(eng, index)
-    plan = main_path(eng, queries, [(pair_entry, pair_decode.decode_pair)], "opt")
+    plan, _ = main_path(eng, queries, [(pair_entry, pair_decode.decode_pair)], "opt")
     pair_part_phase(eng, plan)
     oracle_phase(eng, index, wdata, queries, ORACLE_QUERIES, "opt")
+    opt_prune_phase(eng, queries)
     del eng
 
     # block_optpfor path: split mode
     index = build_index(coll, "block_optpfor")
     eng = start_engine(index, wdata)
     block_entries, code_words = block_kernel_phase(eng, index)
-    plan = main_path(eng, queries, [(e, getattr(block_decode, e["name"])) for e in block_entries],
-                     "block_optpfor")
+    plan, res = main_path(eng, queries,
+                          [(e, getattr(block_decode, e["name"])) for e in block_entries],
+                          "block_optpfor")
     part_kernel_phase(eng, plan, code_words)
     oracle_phase(eng, index, wdata, queries, ORACLE_QUERIES, "block_optpfor")
-    del eng
+
+    # block_optpfor and_skip: bench.py's default path
+    dec, bm_entry = and_skip_path(eng, index, coll, wdata, queries, plan, res)
+    blockmax_phase(eng, dec, coll, bm_entry)
+    del eng, dec, plan, res
 
     # block_interpolative: oracle only
     index = build_index(coll, "block_interpolative")
@@ -845,7 +1041,7 @@ def main():
         raise AssertionError("the block_interpolative run never launched the CUDA interp_decode")
     del eng
 
-    print(json.dumps({"kernels": [pair_entry, *block_entries]}))
+    print(json.dumps({"kernels": [pair_entry, *block_entries, bm_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,12 +1,15 @@
 """Resident-table batched query engine on PyTorch: decode-unique +
-block-gather + row-sort join.
+block-gather + row-sort join, with block-max pruning.
 
-Port of ds2i_tpu/engine/resident.py, exhaustive ops only, for
-EF-family indexes (ef, single, uniform, opt) in pair mode and for the
-block indexes block_optpfor and block_interpolative in split mode.
-Everything static lives on the device from engine init: the compressed
-words, the per-tile decode fields and, once ranked ops run, the norm
-cache. A query batch uploads only its layout and downloads only results.
+Port of ds2i_tpu/engine/resident.py for EF-family indexes (ef, single,
+uniform, opt) in pair mode and for the block indexes block_optpfor and
+block_interpolative in split mode. Ops: and_counts, or_counts,
+ranked_or, ranked_and (exhaustive, or prune=True: intersection block
+skipping, bench.py's and_skip), wand and maxscore (block-max pruned top-k
+OR). Everything static lives on the device from engine init: the
+compressed words, the per-tile decode fields and, once ranked ops run,
+the norm cache. A query batch uploads only its layout and downloads only
+results.
 
 Per part (one host plan each), on the device:
 
@@ -27,14 +30,25 @@ Per part (one host plan each), on the device:
      reductions, top-k per row
   4. pack the real rows (scaled f16 when the plan allows) and download
 
-The host planner (prepare/_part_plan/_order_groups) is numpy, copied
-from the JAX engine as it stands; its plan arrays equal the JAX
-engine's (tests/test_torch_resident.py). Semantics match the oracle
-layer: same doc sets and counts, f32 scores accumulated in query term
-order.
+Pruned plans decode only the tiles whose blocks survive the host
+planner's block-max directory (_pruned_directory). Its metadata (per
+32-slot block: max weight, max and first docid) comes from one pass of
+the blockmax kernel (ops.blockmax), either over every tile decoded with
+the served weights (_ensure_blockmax) or over the original collection's
+slot planes (build_blockmax); both give byte-identical tables. The
+probes that set the thresholds run one-shot sub-plans on the device
+inside prepare.
+
+The host planner (prepare/_part_plan/_pruned_directory/_order_groups) is
+numpy, copied from the JAX engine as it stands with its knobs fixed at
+their defaults; its plan arrays and directories equal the JAX engine's
+(tests/test_torch_resident.py, tests/test_torch_prune.py). Semantics
+match the oracle layer: same doc sets and counts, f32 scores accumulated
+in query term order.
 """
 
 import math
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -44,8 +58,9 @@ from ..codecs.interpolative import InterpolativeBlock
 from ..codecs.optpfor import OptPForBlock
 from ..queries.bm25 import BM25
 from ..queries.parsing import query_freqs
+from ..utils.logging import logger
 
-from ..ops import block_decode, pair_decode
+from ..ops import block_decode, blockmax, pair_decode
 from .block_tiles import BF_EX_BASE, build_block_tables, build_exception_patches
 from .state import resident_state_from_arrays
 from .tiles import F_NVALS, N_FIELDS, TILE, build_tile_tables
@@ -62,6 +77,47 @@ def _pow2_at_least(x, lo=1):
     while v < int(x):
         v *= 2
     return v
+
+
+def _concat_collection(collection):
+    """Concatenate a collection's postings list-major: returns
+    (docs_all, freqs_all, list_n) int64 arrays. Vectorized for
+    BinaryFreqCollection (one fancy-index per memmapped stream); any
+    iterable of (docs, freqs) pairs works as a fallback."""
+    docs_obj = getattr(collection, "docs", None)
+    freqs_obj = getattr(collection, "freqs", None)
+    if docs_obj is not None and hasattr(docs_obj, "offsets"):
+        def flat(bc, skip_first=False):
+            offs = bc.offsets()[1:] if skip_first else bc.offsets()
+            starts = np.fromiter((p for p, _ in offs), dtype=np.int64, count=len(offs))
+            lens = np.fromiter((n for _, n in offs), dtype=np.int64, count=len(offs))
+            tot = int(lens.sum())
+            ex = np.cumsum(lens) - lens
+            idx = np.repeat(starts - ex, lens) + np.arange(tot, dtype=np.int64)
+            return np.asarray(bc.data[idx], dtype=np.int64), lens
+
+        docs_all, dl = flat(docs_obj, skip_first=True)
+        freqs_all, fl = flat(freqs_obj)
+        if not np.array_equal(dl, fl):
+            raise ValueError("docs/freqs sequence lengths differ")
+        return docs_all, freqs_all, dl
+    ds, fs, ln = [], [], []
+    for docs, freqs in collection:
+        ds.append(np.asarray(docs, dtype=np.int64))
+        fs.append(np.asarray(freqs, dtype=np.int64))
+        ln.append(len(ds[-1]))
+    if not ds:
+        z = np.zeros(0, dtype=np.int64)
+        return z, z.copy(), z.copy()
+    return np.concatenate(ds), np.concatenate(fs), np.array(ln, dtype=np.int64)
+
+
+def _bm_chunk_rows(max_part_slots, total):
+    """Rows per chunk of build_blockmax's collection pass, a function of
+    the engine's slot budget and the total block count (the JAX engine's
+    canonical chunk; here it bounds the device memory of one chunk)."""
+    budget = max(min(int(max_part_slots), 1 << 25), 1 << 12)
+    return min(max(budget // BLOCK, 1), _pow2_at_least(max(total, 1)))
 
 
 # -- device functions (plain functions on tensors) ---------------------------
@@ -81,15 +137,16 @@ def _norm_cache_step(docs_words, tiles_docs, norm_den, gtile_ids, layout, num_do
     return norm_den[d.long().clamp(0, num_docs - 1)]
 
 
-def _decode_part(state, gtile_ids, gtile_f, blkperm, layout, num_docs, ranked):
+def _decode_part(state, gtile_ids, gtile_f, blkperm, layout, num_docs, ranked, pow2_rows=True):
     """Decode stage of one part, written by its kernels straight into slot
     tables padded to a power-of-two row count (pad rows: docid num_docs,
-    weight 0), as in the JAX engine: (docs32 int32, w32 f32), doc-term
-    weights (ranked) or 1.0 presence flags. layout: the part's PartLayout
-    (pair mode: one pair_decode launch for both streams; split mode:
-    gtile_f and blkperm are the freqs-order rows and realign)."""
+    weight 0), as in the JAX engine (pow2_rows=False: the part's blocks
+    alone): (docs32 int32, w32 f32), doc-term weights (ranked) or 1.0
+    presence flags. layout: the part's PartLayout (pair mode: one
+    pair_decode launch for both streams; split mode: gtile_f and blkperm
+    are the freqs-order rows and realign)."""
     weights = "bm25" if ranked else "presence"
-    rows = _pow2_at_least(layout.nb_d)
+    rows = _pow2_at_least(layout.nb_d) if pow2_rows else layout.nb_d
     if layout.pair:
         return pair_decode.pair_decode_part(
             state.docs_words, state.freqs_words, state.tiles_docs, state.tiles_freqs, gtile_ids,
@@ -97,6 +154,18 @@ def _decode_part(state, gtile_ids, gtile_f, blkperm, layout, num_docs, ranked):
     return block_decode.split_decode_part(
         state.docs_words, state.tiles_docs, state.tiles_freqs, gtile_ids, gtile_f, blkperm,
         layout, num_docs, weights, state.den_blocks, state.tile_gblk0, out_rows=rows)
+
+
+def _decode_slots_step(state, part, num_docs):
+    """One decode of a run of tiles (a TilesPart) for the block-max
+    metadata pass: the part's BM25 launches (the served weight
+    expression, den from the norm cache), then the blockmax kernel in rows
+    form. Returns (docs32, w32, wmax, dmax, dmin) in the part's
+    group-major block order, its pad rows included."""
+    docs32, w32 = _decode_part(state, part.gtile_ids, part.gtile_f, part.blkperm, part.layout,
+                               num_docs, True, pow2_rows=False)
+    wmax, dmax, dmin, _ = blockmax.blockmax_rows(docs32, w32, num_docs)
+    return docs32, w32, wmax, dmax, dmin
 
 
 def _join_bucket(docs32, w32, bdir, qwtab, tgtv, num_docs, k, ops, tmax):
@@ -194,6 +263,19 @@ class ResidentEngine:
     across queries."""
 
     MIN_L = 64
+    # the largest k the pruning threshold tables support (per-list sorted
+    # block maxes are truncated here; a larger k disables the static
+    # per-term threshold)
+    PRUNE_KMAX = 128
+    # the AND probe (_and_prefix_probe): rows with more kept blocks than
+    # AND_PROBE_MIN_BLOCKS are probed over the blocks up to their rarest
+    # span's AND_PROBE_BLOCKS-th kept block (the JAX engine's defaults of
+    # DS2I_AND_PROBE_MIN_BLOCKS and DS2I_AND_PROBE_BLOCKS)
+    AND_PROBE_MIN_BLOCKS = 128
+    AND_PROBE_BLOCKS = 64
+    # rounds of the AND directory's overlap fixpoint (DS2I_AND_FIXPOINT's
+    # default)
+    AND_FIXPOINT_ROUNDS = 3
 
     def __init__(self, index, wdata=None, max_part_slots=1 << 21,
                  max_part_queries=16384, device=None):
@@ -235,6 +317,8 @@ class ResidentEngine:
         self.num_docs = index.num_docs()
         self.max_part_slots = max_part_slots
         self.max_part_queries = max_part_queries
+        self._probe_rows = 0  # rows the probes of the last pruned prepare ran
+        self.wmax_blk = None  # the block-max metadata, once built (_install_blockmax)
         num_lists = index.size()
         if hasattr(index, "docs_sequences"):
             t, words = self._init_ef(index)
@@ -374,6 +458,312 @@ class ResidentEngine:
             return self.tile_gid_d, self.group_statics_d
         return self.tile_gid, self.group_statics
 
+    # -- block-max pruning metadata ---------------------------------------------
+
+    def _ensure_blockmax(self):
+        """Materialize the WAND/MaxScore pruning metadata by one decode of
+        every tile (lazy like the norm cache, and a no-op once present):
+          wmax_blk   f32[total_blocks]  per-32-block max doc-term weight,
+                                        global (tile-major) block order
+          list_wmax  f32[num_lists]     per-list max
+          kth CSR    per-list block maxes sorted descending (<= PRUNE_KMAX):
+                     the j-th entry is an ACHIEVED doc-term weight of j
+                     distinct docs, so qw * vals[k-1] lower-bounds the true
+                     k-th best score of any query containing the term.
+        The tiles decode in contiguous runs of at most the slot budget,
+        each run through its part launches with the served BM25 weights,
+        then the blockmax kernel (rows form); the tile-major metadata
+        assembles on the host (the global blocks of tiles [lo, hi) are
+        gblk0[lo]:gblk0[hi])."""
+        if self.wmax_blk is not None:
+            return
+        self._ensure_norm_cache()
+        nt = self.pad_tile
+        tb = self.tile_blocks
+        gblk0 = self._tile_gblk0()
+        total = int(gblk0[-1])
+
+        # short lists get posting-exact planner metadata (their blocks span
+        # wide docid ranges)
+        self._pick_short_lists()
+        short_gblks, short_list_of_blk = self._short_block_ids(gblk0)
+
+        wmax_all = np.zeros(total, dtype=np.float32)
+        dmax_all = np.full(total, -1, dtype=np.int64)
+        dmin_all = np.zeros(total, dtype=np.int64)
+        sdocs = np.full((len(short_gblks), BLOCK), np.iinfo(np.int32).max, dtype=np.int32)
+        sw = np.zeros((len(short_gblks), BLOCK), dtype=np.float32)
+        budget = max(min(int(self.max_part_slots), 1 << 25), 1 << 12)
+        slots_tile = tb * BLOCK
+        cid = (np.cumsum(slots_tile) - slots_tile) // budget if nt else np.zeros(0, np.int64)
+        cuts = np.concatenate([[0], np.nonzero(np.diff(cid))[0] + 1, [nt]]).astype(np.int64)
+        for lo, hi in zip(cuts[:-1], cuts[1:]):
+            lo, hi = int(lo), int(hi)
+            if hi <= lo:
+                continue
+            part = self._full_tile_orders(np.arange(lo, hi, dtype=np.int64))
+            tb_c = tb[lo:hi]
+            tot_c = int(tb_c.sum())
+            if not tot_c:
+                continue
+            # tile-major block b of the run -> its group-major decode row;
+            # the decode's pad rows are never addressed
+            bex_c = np.cumsum(tb_c) - tb_c
+            src_c = np.repeat(part.tblk, tb_c) + (
+                np.arange(tot_c, dtype=np.int64) - np.repeat(bex_c, tb_c))
+            sidx = np.nonzero((short_gblks >= gblk0[lo]) & (short_gblks < gblk0[hi]))[0]
+            docs_d, w_d, wmax_c, dmax_c, dmin_c = _decode_slots_step(
+                self.state, part, self.num_docs)
+            if len(sidx):
+                rows_c = torch.from_numpy(src_c[short_gblks[sidx] - gblk0[lo]]).to(self.device)
+                sdocs[sidx] = docs_d[rows_c].cpu().numpy()
+                sw[sidx] = w_d[rows_c].cpu().numpy()
+            wmax_all[gblk0[lo]:gblk0[hi]] = wmax_c.cpu().numpy()[src_c]
+            dmax_all[gblk0[lo]:gblk0[hi]] = dmax_c.cpu().numpy()[src_c]
+            dmin_all[gblk0[lo]:gblk0[hi]] = dmin_c.cpu().numpy()[src_c]
+        self._install_blockmax(wmax_all, dmax_all, dmin_all, gblk0,
+                               *self._short_csr(sdocs, sw, short_list_of_blk))
+
+    def _tile_gblk0(self):
+        """First global (tile-major) block of each tile, and the total
+        block count last: (num_tiles + 1,) int64."""
+        gblk0 = np.zeros(self.pad_tile + 1, dtype=np.int64)
+        np.cumsum(self.tile_blocks, out=gblk0[1:])
+        return gblk0
+
+    def _short_csr(self, sdocs, sw, short_list_of_blk):
+        """(short_keys, short_w): the short lists' postings keyed by
+        list * (num_docs + 1) + docid (globally sorted, since blocks come
+        list-major in docid order), and their weights."""
+        if not len(sdocs):
+            return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.float32)
+        valid = sdocs < self.num_docs
+        lists_rep = np.repeat(short_list_of_blk, BLOCK).reshape(-1, BLOCK)
+        short_keys = lists_rep[valid].astype(np.int64) * np.int64(self.num_docs + 1) + sdocs[valid]
+        return short_keys, sw[valid].astype(np.float32)
+
+    def _short_block_ids(self, gblk0):
+        """Global block ids (and owning lists) of every short list's
+        blocks: the rows whose (docid, weight) slots the planner keeps for
+        posting-exact bounds. Shared by both metadata passes so their
+        selection is identical."""
+        lgb0_all = gblk0[self.list_tile_start]
+        short_lists = np.nonzero(self.is_short)[0]
+        if not len(short_lists):
+            return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int64)
+        s_nb = lgb0_all[short_lists + 1] - lgb0_all[short_lists]
+        s_tot = int(s_nb.sum())
+        s_ex = np.cumsum(s_nb) - s_nb
+        short_gblks = np.repeat(lgb0_all[short_lists] - s_ex, s_nb) + np.arange(s_tot, dtype=np.int64)
+        return short_gblks, np.repeat(short_lists, s_nb)
+
+    def _pick_short_lists(self):
+        """Short lists: at most 256 postings, the cap halved (down to 8)
+        while their postings pass 2^26, so host memory stays bounded.
+        Deterministic in the list sizes alone, so both passes pick the
+        same set."""
+        short_max = 256
+        while short_max > 8 and int(self.list_n[self.list_n <= short_max].sum()) > (1 << 26):
+            short_max //= 2
+        self.is_short = self.list_n <= short_max
+
+    def _install_blockmax(self, wmax_all, dmax_all, dmin_all, gblk0, short_keys, short_w):
+        """Install the per-block metadata and every planner table derived
+        from it. Shared by both passes, so their tables are identical by
+        construction."""
+        nt = self.pad_tile
+        tb = self.tile_blocks
+        total = int(gblk0[-1])
+        self.wmax_blk = wmax_all
+        self.dmax_blk = dmax_all
+        self.dmin_blk = dmin_all
+        self.gblk0 = gblk0
+        self.tile_of_gblk = np.repeat(np.arange(nt, dtype=np.int64), tb)
+        self._short_stride = np.int64(self.num_docs + 1)
+        self._short_keys = short_keys
+        self._short_w = short_w
+
+        # per-list ranges in global block space (a list's tiles, hence its
+        # blocks, are contiguous)
+        lgb0 = gblk0[self.list_tile_start]  # (num_lists+1,)
+        self.list_gblk0 = lgb0
+        nl = len(lgb0) - 1
+        if total:
+            nblk_l = np.diff(lgb0)
+            list_of_blk = np.repeat(np.arange(nl, dtype=np.int64), nblk_l)
+            self.list_wmax = np.zeros(nl, dtype=np.float32)
+            ne = nblk_l > 0
+            if np.any(ne):
+                self.list_wmax[ne] = np.maximum.reduceat(
+                    self.wmax_blk, np.minimum(lgb0[:-1][ne], total - 1))
+            # per-list descending block maxes, truncated to PRUNE_KMAX
+            order = np.lexsort((-self.wmax_blk, list_of_blk))
+            rank = np.arange(total, dtype=np.int64) - lgb0[list_of_blk[order]]
+            keep = rank < self.PRUNE_KMAX
+            self._kth_vals = self.wmax_blk[order][keep]
+            kept_per_list = np.bincount(list_of_blk[order][keep], minlength=nl)
+            self._kth_start = np.zeros(nl + 1, dtype=np.int64)
+            np.cumsum(kept_per_list, out=self._kth_start[1:])
+            # rank of each block within its list (desc by wmax): drives the
+            # probe directory (top-P blocks per term)
+            self.rank_blk = np.zeros(total, dtype=np.int64)
+            self.rank_blk[order] = rank
+        else:
+            self.list_wmax = np.zeros(nl, dtype=np.float32)
+            self._kth_vals = np.zeros(0, dtype=np.float32)
+            self._kth_start = np.zeros(nl + 1, dtype=np.int64)
+            self.rank_blk = np.zeros(0, dtype=np.int64)
+        self._derive_prune_tables()
+
+    def build_blockmax(self, collection):
+        """Build the pruning metadata from the ORIGINAL collection (the
+        build-time-artifact path of the reference's ranking metadata,
+        create_wand_data.cpp, wand_data.hpp:20-53): the host lays out
+        every block's docids and freqs as (total_blocks, 32) slot planes,
+        uploaded in chunks of _bm_chunk_rows rows, and the blockmax kernel
+        (planes form) evaluates the weights with the served expression and
+        takes the per-block maxima; no tile is decoded. Byte-identical
+        tables to _ensure_blockmax's (tested).
+
+        collection: a BinaryFreqCollection or any iterable of (docs,
+        freqs) pairs in index list order; one whose per-list posting
+        counts differ from the index's raises ValueError. A no-op when
+        the metadata is already present."""
+        if self.wmax_blk is not None:
+            return
+        doc_plane, freq_plane = self._collection_planes(collection)
+        total = len(doc_plane)
+        gblk0 = self._tile_gblk0()
+        self._pick_short_lists()
+        short_gblks, short_list_of_blk = self._short_block_ids(gblk0)
+
+        wmax_all = np.zeros(total, dtype=np.float32)
+        dmax_all = np.zeros(total, dtype=np.int64)
+        dmin_all = np.zeros(total, dtype=np.int64)
+        sw = np.zeros((len(short_gblks), BLOCK), dtype=np.float32)
+        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)  # noqa: E731
+        CB = _bm_chunk_rows(self.max_part_slots, total)
+        for lo in range(0, total, CB):
+            hi = min(lo + CB, total)
+            wmax_c, dmax_c, dmin_c, w = blockmax.blockmax_rows(
+                put(doc_plane[lo:hi]), put(freq_plane[lo:hi]), self.num_docs, self.state.norm_den)
+            wmax_all[lo:hi] = wmax_c.cpu().numpy()
+            dmax_all[lo:hi] = dmax_c.cpu().numpy()
+            dmin_all[lo:hi] = dmin_c.cpu().numpy()
+            sidx = np.nonzero((short_gblks >= lo) & (short_gblks < hi))[0]
+            if len(sidx):
+                sw[sidx] = w[put(short_gblks[sidx] - lo)].cpu().numpy()
+        self._install_blockmax(wmax_all, dmax_all, dmin_all, gblk0,
+                               *self._short_csr(doc_plane[short_gblks], sw, short_list_of_blk))
+
+    def _collection_planes(self, collection):
+        """The (total_blocks, 32) docid (int32) and raw-freq (f32) slot
+        planes of the collection's postings in the engine's tile-major
+        block order, pad slots (num_docs, 0) as the decode pass writes
+        them; ValueError when the per-list posting counts differ from the
+        index's."""
+        docs_all, freqs_all, list_n = _concat_collection(collection)
+        if not np.array_equal(list_n, self.list_n):
+            raise ValueError(
+                "collection does not match the index (per-list posting "
+                "counts differ); build_blockmax needs the collection the "
+                "index was built from"
+            )
+        nt = self.pad_tile
+        nvals = self.tiles.docs[:, F_NVALS].astype(np.int64)
+        tb = self.tile_blocks
+        total = int(tb.sum())
+        # block b = a 32-slot run of its tile; a list's tiles cover its
+        # postings contiguously in order, so block j of tile t covers
+        # postings [pbase[t] + 32 j, min(+32, pbase[t] + nvals[t]))
+        pbase = np.cumsum(nvals) - nvals
+        bex = np.cumsum(tb) - tb
+        block_tile = np.repeat(np.arange(nt, dtype=np.int64), tb)
+        bstart = pbase[block_tile] + BLOCK * (np.arange(total, dtype=np.int64) - bex[block_tile])
+        bend = np.minimum(bstart + BLOCK, pbase[block_tile] + nvals[block_tile])
+        idx = bstart[:, None] + np.arange(BLOCK, dtype=np.int64)[None, :]
+        validp = idx < bend[:, None]
+        idxc = np.minimum(idx, max(len(docs_all) - 1, 0))
+        doc_plane = np.where(validp, docs_all[idxc], self.num_docs).astype(np.int32)
+        freq_plane = np.where(validp, freqs_all[idxc], 0).astype(np.float32)
+        return doc_plane.reshape(total, BLOCK), freq_plane.reshape(total, BLOCK)
+
+    def _derive_prune_tables(self):
+        """Planner tables derived from the block metadata:
+
+          _dmax_keys / _dlo_keys  i64[total_blocks], globally sorted
+              (list-major, docids increase within a list): two
+              searchsorted calls give the EXACT range of a list's blocks
+              overlapping any docid interval, the planner analogue of the
+              reference cursor's next_geq block walk
+              (block_posting_list.hpp skipping).
+          _pyr (+ _pyr_off/_pyr_q)  per-list binary max-pyramid over
+              block maxes: max(wmax) over any block range [b0,b1] in two
+              gathers, outward-rounded to the enclosing power-of-two
+              cells (a valid upper bound; <= 4x range dilation)."""
+        total = len(self.wmax_blk)
+        lgb0 = self.list_gblk0
+        nl = len(lgb0) - 1
+        stride = np.int64(self.num_docs + 1)
+        nb = np.diff(lgb0)
+        list_of_blk = np.repeat(np.arange(nl, dtype=np.int64), nb)
+        # the TRUE first docid per block (not prev-max+1): a list's block
+        # ranges then leave gaps between blocks, so block-exact overlap
+        # prunes against lists of every length
+        dlo = self.dmin_blk
+        self._blk_dlo = dlo
+        self._dmax_keys = list_of_blk * stride + self.dmax_blk
+        self._dlo_keys = list_of_blk * stride + dlo
+
+        Q = np.ones(nl, dtype=np.int64)
+        pos = nb > 0
+        Q[pos] = 2 ** np.ceil(np.log2(nb[pos])).astype(np.int64)
+        off = np.zeros(nl + 1, dtype=np.int64)
+        np.cumsum(2 * Q - 1, out=off[1:])
+        pyr = np.zeros(int(off[-1]), dtype=np.float32)
+        if total:
+            rel = np.arange(total, dtype=np.int64) - lgb0[list_of_blk]
+            pyr[off[list_of_blk] + rel] = self.wmax_blk
+        # level s of list l starts at off[l] + 2*Q[l] - 2*(Q[l] >> s)
+        depth = int(np.log2(int(Q.max()))) if nl else 0
+        for s in range(1, depth + 1):
+            m = (Q >> s) >= 1
+            cells = (Q >> s)[m]
+            loff = off[:-1][m]
+            Ql = Q[m]
+            tot_c = int(cells.sum())
+            ex = np.cumsum(cells) - cells
+            j = np.arange(tot_c, dtype=np.int64) - np.repeat(ex, cells)
+            par = np.repeat(loff + 2 * Ql - 2 * cells, cells) + j
+            ch = np.repeat(loff + 2 * Ql - 4 * cells, cells) + 2 * j
+            pyr[par] = np.maximum(pyr[ch], pyr[ch + 1])
+        self._pyr = pyr
+        self._pyr_off = off[:-1]
+        self._pyr_q = Q
+
+    def _blk_overlap(self, lists, dlo_e, dhi_e):
+        """First/last block of each list whose docid range intersects
+        [dlo_e, dhi_e] (global block ids; empty iff bf > bl). Exact at
+        block granularity for ANY list length."""
+        stride = np.int64(self.num_docs + 1)
+        bf = np.searchsorted(self._dmax_keys, lists * stride + dlo_e)
+        bl = np.searchsorted(self._dlo_keys, lists * stride + dhi_e, side="right") - 1
+        return bf, bl
+
+    def _range_ub(self, lists, b0, b1):
+        """Upper bound on the max doc-term weight over blocks [b0, b1] of
+        each list (global ids within the list) via the max-pyramid."""
+        r0 = b0 - self.list_gblk0[lists]
+        r1 = b1 - self.list_gblk0[lists]
+        d = r1 - r0
+        s = np.zeros(len(d), dtype=np.int64)
+        m = d > 0
+        if np.any(m):
+            s[m] = np.floor(np.log2(d[m])).astype(np.int64) + 1
+        Q = self._pyr_q[lists]
+        start = self._pyr_off[lists] + 2 * Q - 2 * (Q >> s)
+        return np.maximum(self._pyr[start + (r0 >> s)], self._pyr[start + (r1 >> s)])
+
     # -- host batch layout ----------------------------------------------------
 
     def _prep_terms(self, queries, ranked):
@@ -476,7 +866,14 @@ class ResidentEngine:
         TilesPart): (gtile_ids, gtile_f, blkperm) int64 on the engine's
         device, the part's PartLayout, and each tile's first docs-order
         and freqs-order block (host arrays)."""
-        utidx = np.arange(self.pad_tile)
+        return self._full_tile_orders()
+
+    def _full_tile_orders(self, utidx=None):
+        """A TilesPart over the tiles utidx (default: every tile), laid
+        out as a plan's part is: the tile-set analogue of _part_plan's
+        layout, for the init passes."""
+        if utidx is None:
+            utidx = np.arange(self.pad_tile, dtype=np.int64)
         groups, gtile, tblk, _, nb_d = self._order_groups(utidx, *self._docs_grouping())
         groups_f, gtile_f, blkperm = self._split_layout(utidx, tblk, nb_d)
         tblk_f = tblk
@@ -486,67 +883,456 @@ class ResidentEngine:
         return TilesPart(put(gtile), put(gtile_f), put(blkperm),
                          block_decode.PartLayout(groups, groups_f), tblk, tblk_f)
 
-    def _part_plan(self, terms, qw, counts, k, ops, tmax, qids):
+    # -- block-max pruned directories ------------------------------------------
+
+    def _entry_score_ub(self, t, qw, missing, counts, span_row, span_of_blk, gblk_flat):
+        """Range-aware score upper bound per directory entry: entry e (one
+        block of one span, docid range [dlo, dhi]) takes its own
+        qw-weighted block max plus, for every OTHER span s of its row,
+        qw_s * max doc-term weight of t_s over the blocks overlapping
+        [dlo, dhi] (block-max WAND's docid alignment, exact at block
+        granularity via _blk_overlap and the pyramid range max;
+        posting-exact for short other-terms). Valid for any doc in the
+        block under both OR and AND semantics (same score sum)."""
+        tot = len(gblk_flat)
+        rowe = span_row[span_of_blk]
+        sexcl = np.cumsum(counts) - counts
+        cnt_e = counts[rowe]
+        P = int(cnt_e.sum())
+        ent_of_pair = np.repeat(np.arange(tot, dtype=np.int64), cnt_e)
+        pexcl = np.cumsum(cnt_e) - cnt_e
+        s_pair = sexcl[rowe][ent_of_pair] + (np.arange(P, dtype=np.int64) - pexcl[ent_of_pair])
+        ts_pair = t[s_pair]
+        dlo_e = self._blk_dlo[gblk_flat][ent_of_pair]
+        dhi_e = self.dmax_blk[gblk_flat][ent_of_pair]
+        bf, bl = self._blk_overlap(ts_pair, dlo_e, dhi_e)
+        has = bf <= bl
+        v = np.zeros(P, dtype=np.float32)
+        if np.any(has):
+            v[has] = self._range_ub(ts_pair[has], bf[has], bl[has])
+        # short other-terms: posting-exact overlap against the entry's
+        # docid range (their blocks span wide docid ranges)
+        sp = self.is_short[ts_pair] & ~missing[s_pair]
+        if np.any(sp):
+            base = ts_pair[sp] * self._short_stride
+            lo = np.searchsorted(self._short_keys, base + dlo_e[sp])
+            hi = np.searchsorted(self._short_keys, base + dhi_e[sp] + 1)
+            cnt = hi - lo
+            v[sp] = np.where(
+                cnt == 0, np.float32(0.0),
+                np.where(cnt == 1,
+                         self._short_w[np.clip(lo, 0, max(len(self._short_w) - 1, 0))],
+                         v[sp]))
+        v = np.where(missing[s_pair], 0.0, v)
+        own = s_pair == span_of_blk[ent_of_pair]
+        contrib = np.where(own, 0.0, qw[s_pair].astype(np.float64) * v)
+        rest_ub = np.add.reduceat(contrib, pexcl) if P else np.zeros(tot)
+        return rest_ub + qw.astype(np.float64)[span_of_blk] * self.wmax_blk[gblk_flat]
+
+    def _pruned_directory(self, terms, qw, counts, k, span_row, theta_override=None,
+                          probe_rank=None, mode="or", essential=False):
+        """Block-max pruned flat directory (WAND/MaxScore,
+        queries.hpp:200-319/:478-591 semantics, batched):
+
+        theta[row] = max over terms of qw * (k-th largest block max), an
+        ACHIEVED lower bound on the true k-th best score (each block max
+        is a real doc's doc-term weight; distinct blocks, distinct docs).
+        An entry (query, term t, block b) is dropped when
+            ub = qw_t*bmax(t,b) + sum_{t' != t} qw_t'*rmax(t', b) < theta
+        (rmax = max doc-term weight of t' over b's docid range, an upper
+        bound from _blk_overlap and the block max-pyramid): every doc in b
+        then has true score < theta <= true k-th score, so it cannot enter
+        the top-k; docs that CAN enter keep every block of every their
+        term, so their join-assembled scores stay exact.
+
+        probe_rank: each term's top probe_rank blocks by block max (the
+        WAND probe). mode="and": intersection pruning by block overlap,
+        theta_override (per row) adding the score test, then the overlap
+        fixpoint. essential (mode "or"): MaxScore's restriction.
+        Returns (gblk_kept, span_kept, row_of_blk, row_nb) in global block
+        ids, row-major order."""
+        B = len(counts)
+        t = np.clip(terms, 0, None)
+        missing = terms < 0
+        span_nb = np.where(missing, 0, self.list_blocks[t])
+
+        tot = int(span_nb.sum())
+        if not tot:
+            z = np.zeros(0, np.int64)
+            return z, z, z, np.zeros(B, np.int64)
+        bexcl = np.cumsum(span_nb) - span_nb
+        span_of_blk = np.repeat(np.arange(len(span_nb)), span_nb)
+        gblk_flat = np.repeat(self.list_gblk0[t] - bexcl, span_nb) + np.arange(tot, dtype=np.int64)
+
+        if probe_rank is not None:
+            keep = self.rank_blk[gblk_flat] < probe_rank
+        elif mode == "and":
+            # intersection pruning, the batched analogue of and_query's
+            # next_geq skipping (queries.hpp:59-82): drop an entry when ANY
+            # other span of its row provably has no posting in the entry's
+            # docid range; no doc of the block can then be in the
+            # intersection, so counts and scores stay exact
+            rowe = span_row[span_of_blk]
+            sexcl = np.cumsum(counts) - counts
+            cnt_e = counts[rowe]
+            P = int(cnt_e.sum())
+            ent_of_pair = np.repeat(np.arange(tot, dtype=np.int64), cnt_e)
+            pexcl = np.cumsum(cnt_e) - cnt_e
+            s_pair = sexcl[rowe][ent_of_pair] + (np.arange(P, dtype=np.int64) - pexcl[ent_of_pair])
+            ts_pair = t[s_pair]
+            dlo_e = self._blk_dlo[gblk_flat][ent_of_pair]
+            dhi_e = self.dmax_blk[gblk_flat][ent_of_pair]
+            bf, bl = self._blk_overlap(ts_pair, dlo_e, dhi_e)
+            present = bf <= bl  # block-exact range overlap
+            sp = self.is_short[ts_pair]
+            if np.any(sp):
+                base = ts_pair[sp] * self._short_stride
+                lo = np.searchsorted(self._short_keys, base + dlo_e[sp])
+                hi = np.searchsorted(self._short_keys, base + dhi_e[sp] + 1)
+                present[sp] = hi > lo  # posting-exact overlap
+            present[missing[s_pair]] = False  # absent term: empty AND
+            own = s_pair == span_of_blk[ent_of_pair]
+            ok_pair = present | own
+            keep = (np.add.reduceat(ok_pair.astype(np.int64), pexcl) == cnt_e
+                    if P else np.zeros(tot, dtype=bool))
+            theta_keep = None
+            if theta_override is not None and np.any(np.isfinite(theta_override)):
+                # AND score pruning (exact): theta_override[row] is an
+                # ACHIEVED k-th best AND score (the docid-prefix probe's);
+                # a block with ub < theta holds no doc of the final top-k,
+                # and a doc missing ANY block is excluded entirely, not
+                # partially scored. Applied to overlap survivors only.
+                srv = np.nonzero(keep)[0]
+                th_e = theta_override[span_row[span_of_blk[srv]]]
+                cand = np.isfinite(th_e)
+                if np.any(cand):
+                    sc = srv[cand]
+                    ub = self._entry_score_ub(t, qw, missing, counts, span_row,
+                                              span_of_blk[sc], gblk_flat[sc])
+                    th = th_e[cand]
+                    keep[sc[ub < th - np.abs(th) * 1e-4]] = False
+                    # the fixpoint recomputes keep from pair overlap alone;
+                    # score drops must stay dropped
+                    theta_keep = keep.copy()
+            # fixpoint: each round's dropped blocks shrink the other terms'
+            # surviving coverage, which drops more blocks (the cursor
+            # leapfrog's mutual narrowing). Exact by induction: a doc in the
+            # intersection keeps all its blocks in round 0, so each of its
+            # pair probes keeps finding the surviving partner block
+            stride = self._short_stride
+            dmax_flat = self.dmax_blk[gblk_flat]
+            dmin_flat = self._blk_dlo[gblk_flat]
+            for _ in range(self.AND_FIXPOINT_ROUNDS):
+                if P == 0 or not keep.any():
+                    break
+                srv = np.nonzero(keep)[0]
+                # span-major, docid-ascending by construction of gblk_flat
+                keys_max = span_of_blk[srv] * stride + dmax_flat[srv]
+                pos = np.searchsorted(keys_max, s_pair * stride + dlo_e)
+                posc = np.minimum(pos, max(len(srv) - 1, 0))
+                cover = ((pos < len(srv)) & (span_of_blk[srv][posc] == s_pair)
+                         & (dmin_flat[srv][posc] <= dhi_e))
+                ok_new = (present & cover) | own
+                keep_new = np.add.reduceat(ok_new.astype(np.int64), pexcl) == cnt_e
+                if theta_keep is not None:
+                    keep_new &= theta_keep
+                if np.array_equal(keep_new, keep):
+                    break
+                keep = keep_new
+        else:
+            # static theta: k-th largest block max per term (CSR; -inf when
+            # the term has fewer than k blocks or k exceeds the table)
+            if k > self.PRUNE_KMAX and not getattr(self, "_kmax_warned", False):
+                logger(
+                    f"warning: k={k} exceeds PRUNE_KMAX={self.PRUNE_KMAX}: "
+                    f"per-term static thresholds are disabled (results stay "
+                    f"exact; pruning falls back to probe/range bounds only)"
+                )
+                self._kmax_warned = True
+            kstart = self._kth_start[t]
+            kn = self._kth_start[t + 1] - kstart
+            ok = (~missing) & (kn >= k) & (k <= self.PRUNE_KMAX)
+            kth = np.where(ok, self._kth_vals[np.where(ok, kstart + k - 1, 0)], -np.inf)
+            theta_s = np.where(ok, qw.astype(np.float64) * kth, -np.inf)
+            theta = np.full(B, -np.inf)
+            np.maximum.at(theta, span_row, theta_s)
+            if theta_override is not None:
+                # probe scores are true partial scores of real docs, so
+                # their k-th best is a valid (usually far tighter) bound
+                theta = np.maximum(theta, theta_override)
+            ub = self._entry_score_ub(t, qw, missing, counts, span_row, span_of_blk, gblk_flat)
+            # 1e-4 relative margin absorbs f32 accumulation-order noise on
+            # both sides (the parity tolerance is 0.1% relative,
+            # test_ranked_queries.cpp:52)
+            th = theta[span_row[span_of_blk]]
+            keep = ~(ub < th - np.abs(th) * 1e-4)
+            if essential:
+                keep = self._essential_restrict(keep, t, qw, counts, missing, theta, span_row,
+                                                span_of_blk, gblk_flat)
+
+        gblk_kept = gblk_flat[keep]
+        span_kept = span_of_blk[keep]
+        row_of_blk = span_row[span_kept]
+        row_nb = np.bincount(row_of_blk, minlength=B).astype(np.int64)
+        return gblk_kept, span_kept, row_of_blk, row_nb
+
+    def _essential_restrict(self, keep, t, qw, counts, missing, theta, span_row, span_of_blk,
+                            gblk_flat):
+        """MaxScore's essential/non-essential split at plan time
+        (maxscore_query's candidate restriction, queries.hpp:478-591): per
+        query, sort terms ascending by their max contribution
+        qw*list_wmax; the maximal prefix whose cumulative sum stays below
+        theta is NON-ESSENTIAL (no doc scoring >= theta consists of
+        non-essential postings alone), so a surviving non-essential block
+        is kept only where its docid range overlaps a surviving ESSENTIAL
+        block of the same query. Every top-k doc keeps all its blocks, so
+        assembled scores stay exact."""
+        B = len(counts)
+        nspans = len(t)
+        contrib = np.where(missing, 0.0, qw.astype(np.float64) * self.list_wmax[t])
+        # within-row ascending contribution order
+        order = np.lexsort((contrib, span_row))
+        csum = np.cumsum(contrib[order])
+        sexcl = np.cumsum(counts) - counts
+        row_of_o = span_row[order]
+        # per-row exclusive base of the global cumsum (lexsort keeps rows
+        # contiguous: row r's ordered spans occupy [sexcl[r], +counts[r]))
+        row_base = np.zeros(B, dtype=np.float64)
+        nz = counts > 0
+        row_base[nz] = np.where(sexcl[nz] > 0, csum[np.maximum(sexcl[nz] - 1, 0)], 0.0)
+        within = csum - row_base[row_of_o]
+        th_o = theta[row_of_o]
+        # non-essential: cumulative max contribution strictly below theta
+        # with the UB test's 1e-4 relative slack; rows with no usable
+        # theta keep everything essential, and the last (largest) span of
+        # each row is always essential
+        is_last = np.zeros(nspans, dtype=bool)
+        if nspans:
+            is_last[np.cumsum(counts)[nz] - 1] = True
+        noness_o = np.isfinite(th_o) & (within < th_o - np.abs(th_o) * 1e-4) & ~is_last
+        is_noness = np.zeros(nspans, dtype=bool)
+        is_noness[order] = noness_o
+        if not is_noness.any():
+            return keep
+
+        stride = self._short_stride
+        dmax_e = self.dmax_blk[gblk_flat]
+        dmin_e = self._blk_dlo[gblk_flat]
+        row_e = span_row[span_of_blk]
+        ess_entry = keep & ~is_noness[span_of_blk]
+        non_entry = keep & is_noness[span_of_blk]
+        if not non_entry.any():
+            return keep
+        eidx = np.nonzero(ess_entry)[0]
+        eidx = eidx[np.argsort(row_e[eidx] * stride + dmax_e[eidx], kind="stable")]
+        ekey = row_e[eidx] * stride + dmax_e[eidx]
+        # keyed suffix-min of dmin: later rows' keys exceed any same-row
+        # dhi by construction (dmin < stride), so no cross-row overlap
+        kmin = row_e[eidx] * stride + dmin_e[eidx]
+        sufmin = np.minimum.accumulate(kmin[::-1])[::-1] if len(kmin) else kmin
+        nidx = np.nonzero(non_entry)[0]
+        pos = np.searchsorted(ekey, row_e[nidx] * stride + dmin_e[nidx])
+        posc = np.minimum(pos, max(len(ekey) - 1, 0))
+        ok = ((pos < len(ekey))
+              & (ekey[posc] < (row_e[nidx] + 1) * stride)
+              & (sufmin[posc] - row_e[nidx] * stride <= dmax_e[nidx])
+              ) if len(ekey) else np.zeros(len(nidx), dtype=bool)
+        keep = keep.copy()
+        keep[nidx[~ok]] = False
+        return keep
+
+    def _probe_theta(self, pdir, terms, qw, counts, k, tmax, op):
+        """Run a one-shot pruned sub-plan over directory pdir on the
+        device (f32 downloads) and return each row's k-th best `op`
+        ("or" or "and") score, -inf where it found fewer than k. Its rows
+        add to self._probe_rows."""
+        self._probe_rows += len(counts)
+        qe = np.cumsum(counts)
+        qs = qe - counts
+        plans = []
+        for q0, q1, pd in self._split_parts(pdir, counts):
+            pp = self._part_plan(terms[qs[q0]:qe[q1 - 1]], qw[qs[q0]:qe[q1 - 1]],
+                                 counts[q0:q1], k, (op,), tmax, qids=np.arange(q0, q1),
+                                 pruned_dir=pd)
+            pp["fscale"] = None  # thresholds need f32 downloads
+            plans.append(pp)
+        pplan = {"plans": plans, "n": len(counts), "k": k, "ops": (op,)}
+        col = 2 if op == "or" else 3
+        theta = np.full(len(counts), -np.inf)
+        for qi, r in enumerate(self.collect(pplan, self.dispatch(pplan))):
+            s = np.asarray(r[col])
+            fin = s[np.isfinite(s)]
+            if len(fin) >= k:
+                theta[qi] = float(fin[k - 1])
+        return theta
+
+    def _and_prefix_probe(self, dir0, terms, qw, counts, k, tmax):
+        """Docid-prefix AND probe: for rows whose overlap-pruned directory
+        is still heavy (more than AND_PROBE_MIN_BLOCKS blocks), execute
+        the intersection restricted to the blocks whose docid range starts
+        within the rarest span's first AND_PROBE_BLOCKS kept blocks. Any
+        doc fully covered by a block subset scores exactly under AND, so
+        each row's k-th best probe score is an ACHIEVED lower bound on its
+        true k-th best: the theta that lets _pruned_directory drop blocks
+        whose score upper bound cannot reach the top-k (a WAND cursor's
+        threshold tightening as the heap fills, queries.hpp:200-319).
+        Returns per-row theta (-inf where the probe found fewer than k
+        results) or None when no row is heavy."""
+        gk, sk, rb, rnb = dir0
+        B = len(counts)
+        H, P = self.AND_PROBE_MIN_BLOCKS, self.AND_PROBE_BLOCKS
+        heavy = rnb > H
+        if not heavy.any() or not len(gk):
+            return None
+        span_row = np.repeat(np.arange(B), counts)
+        sexcl = np.cumsum(counts) - counts
+        span_cnt = np.bincount(sk, minlength=len(terms)).astype(np.int64)
+        # rarest span per row (kept-block counts; dir entries are row-major
+        # with span-contiguous runs)
+        slot_of_span = np.arange(len(terms), dtype=np.int64) - sexcl[span_row]
+        KEY = 64
+        key = span_cnt * KEY + slot_of_span
+        rare_key = np.full(B, np.iinfo(np.int64).max, dtype=np.int64)
+        np.minimum.at(rare_key, span_row, key)
+        has = counts > 0
+        rare_span = np.where(has, sexcl + (rare_key % KEY), 0)
+        rare_cnt = np.where(has, rare_key // KEY, 0)
+        # per-row docid cutoff: the rare span's P-th kept block's dmax
+        g_excl = np.cumsum(span_cnt) - span_cnt
+        ok = heavy & (rare_cnt > 0)
+        if not ok.any():
+            return None
+        last_e = g_excl[rare_span] + np.minimum(rare_cnt, P) - 1
+        X = np.full(B, -1, dtype=np.int64)
+        X[ok] = self.dmax_blk[gk[last_e[ok]]]
+        mask = ok[rb] & (self._blk_dlo[gk] <= X[rb])
+        if not mask.any():
+            return None
+        # compact the probe batch to the heavy rows only
+        hrows = np.nonzero(ok)[0]
+        hmap = np.full(B, -1, dtype=np.int64)
+        hmap[hrows] = np.arange(len(hrows))
+        hspan = ok[span_row]
+        ns_of_os = np.cumsum(hspan) - 1
+        pdir = (gk[mask], ns_of_os[sk[mask]], hmap[rb[mask]],
+                np.bincount(hmap[rb[mask]], minlength=len(hrows)).astype(np.int64))
+        theta_h = self._probe_theta(pdir, terms[hspan], qw[hspan], counts[hrows], k, tmax, "and")
+        theta = np.full(B, -np.inf)
+        theta[hrows] = theta_h
+        return theta if np.any(np.isfinite(theta)) else None
+
+    def _split_parts(self, full_dir, counts):
+        """Split a batch into parts by the PRUNED per-query slot cost and
+        slice the batch-wide pruned directory for each part: yields
+        (q0, q1, (gblk_kept, span_kept_local, row_of_blk_local,
+        row_nb_local)). Directory entries are row-major (spans are
+        query-major and blocks span-major), so each part's slice is
+        contiguous."""
+        gblk_kept, span_kept, row_of_blk, row_nb = full_dir
+        B = len(counts)
+        Lb = np.maximum(row_nb * BLOCK, 1)
+        Lb = np.maximum(2 ** np.ceil(np.log2(np.maximum(Lb, self.MIN_L))).astype(np.int64),
+                        self.MIN_L)
+        parts = []
+        cur0, cur_slots = 0, 0
+        for qi in range(B):
+            if qi > cur0 and (cur_slots + Lb[qi] > self.max_part_slots
+                              or qi - cur0 >= self.max_part_queries):
+                parts.append((cur0, qi))
+                cur0, cur_slots = qi, 0
+            cur_slots += Lb[qi]
+        parts.append((cur0, B))
+        sexcl = np.cumsum(counts) - counts
+        bounds = np.searchsorted(row_of_blk, [q for q, _ in parts] + [B])
+        for (q0, q1), e0, e1 in zip(parts, bounds[:-1], bounds[1:]):
+            if q1 <= q0:
+                continue
+            yield q0, q1, (gblk_kept[e0:e1], span_kept[e0:e1] - sexcl[q0],
+                           row_of_blk[e0:e1] - q0, row_nb[q0:q1])
+
+    def _part_plan(self, terms, qw, counts, k, ops, tmax, qids, pruned_dir=None):
         """Layout for one part: group-major unique-tile ids + per-bucket
-        block directories. All numpy, no device work."""
+        block directories. All numpy, no device work (the pruning tables
+        are device results held on the host). pruned_dir: the part's
+        slice of the batch's block-max pruned directory (_split_parts),
+        so only the surviving tiles decode; None: every block of every
+        term."""
         B = len(counts)
         span_row = np.repeat(np.arange(B), counts)
         sexcl = np.cumsum(counts) - counts
         slot_of_span = np.arange(len(terms), dtype=np.int64) - sexcl[span_row]
 
-        uterms, uinv = (
-            np.unique(terms, return_inverse=True) if len(terms) else
-            (np.zeros(0, np.int64), np.zeros(0, np.int64))
-        )
-
-        # --- unique-term tile expansion (CSR)
-        tstarts, tcounts = self._term_tiles(uterms)
-        ntiles = int(tcounts.sum())
-        if ntiles:
-            excl = np.cumsum(tcounts) - tcounts
-            utidx = np.repeat(tstarts - excl, tcounts) + np.arange(ntiles, dtype=np.int64)
+        if pruned_dir is not None:
+            gblk_kept, span_kept, row_of_blk, row_nb = pruned_dir
+            tot = len(gblk_kept)
+            tiles_kept = self.tile_of_gblk[gblk_kept] if tot else np.zeros(0, np.int64)
+            utidx = np.unique(tiles_kept)
+            groups, gtile_ids, tblk, sent_blk, nb_d = self._order_groups(
+                utidx, *self._docs_grouping())
+            groups_f, gtile_f, blkperm = self._split_layout(utidx, tblk, nb_d)
+            if tot:
+                pos = np.searchsorted(utidx, tiles_kept)
+                local_blk = tblk[pos] + (gblk_kept - self.gblk0[tiles_kept])
+                dir_flat = (local_blk << 5) | slot_of_span[span_kept]
+                rexcl = np.zeros(B + 1, dtype=np.int64)
+                rexcl[1:] = np.cumsum(row_nb)
+                col_of_blk = np.arange(tot, dtype=np.int64) - rexcl[row_of_blk]
+            else:
+                dir_flat = col_of_blk = np.zeros(0, np.int64)
         else:
-            utidx = np.zeros(0, dtype=np.int64)
+            uterms, uinv = (
+                np.unique(terms, return_inverse=True) if len(terms) else
+                (np.zeros(0, np.int64), np.zeros(0, np.int64))
+            )
 
-        # --- group by decode class, group-major row ids
-        groups, gtile_ids, tblk, sent_blk, nb_d = self._order_groups(
-            utidx, *self._docs_grouping())
-        groups_f, gtile_f, blkperm = self._split_layout(utidx, tblk, nb_d)
+            # --- unique-term tile expansion (CSR)
+            tstarts, tcounts = self._term_tiles(uterms)
+            ntiles = int(tcounts.sum())
+            if ntiles:
+                excl = np.cumsum(tcounts) - tcounts
+                utidx = np.repeat(tstarts - excl, tcounts) + np.arange(ntiles, dtype=np.int64)
+            else:
+                utidx = np.zeros(0, dtype=np.int64)
 
-        # --- per-unique-term block lists (group-major block ids)
-        nbt = self.tile_blocks[utidx]  # blocks of each utile
-        tot_blk = int(nbt.sum())
-        if tot_blk:
-            bexcl = np.cumsum(nbt) - nbt
-            # block b of utile i -> tblk[i] + b
-            ublocks = np.repeat(tblk - bexcl, nbt) + np.arange(tot_blk, dtype=np.int64)
-        else:
-            ublocks = np.zeros(0, dtype=np.int64)
-        # CSR over unique terms (utidx is unique-major, so ublocks is too)
-        unb = self._term_blocks(uterms)
-        ustart = np.concatenate([[0], np.cumsum(unb)])
+            # --- group by decode class, group-major row ids
+            groups, gtile_ids, tblk, sent_blk, nb_d = self._order_groups(
+                utidx, *self._docs_grouping())
+            groups_f, gtile_f, blkperm = self._split_layout(utidx, tblk, nb_d)
 
-        # --- per-query block directory
-        span_nb = unb[uinv] if len(terms) else np.zeros(0, np.int64)
-        row_nb = np.zeros(B, dtype=np.int64)
-        np.add.at(row_nb, span_row, span_nb)
+            # --- per-unique-term block lists (group-major block ids)
+            nbt = self.tile_blocks[utidx]  # blocks of each utile
+            tot_blk = int(nbt.sum())
+            if tot_blk:
+                bexcl = np.cumsum(nbt) - nbt
+                # block b of utile i -> tblk[i] + b
+                ublocks = np.repeat(tblk - bexcl, nbt) + np.arange(tot_blk, dtype=np.int64)
+            else:
+                ublocks = np.zeros(0, dtype=np.int64)
+            # CSR over unique terms (utidx is unique-major, so ublocks is too)
+            unb = self._term_blocks(uterms)
+            ustart = np.concatenate([[0], np.cumsum(unb)])
 
-        # expand each span's blocks, query-major
-        tot = int(span_nb.sum())
-        if tot:
-            bexcl2 = np.cumsum(span_nb) - span_nb
-            span_of_blk = np.repeat(np.arange(len(span_nb)), span_nb)
-            blk_flat = ublocks[
-                np.repeat(ustart[uinv] - bexcl2, span_nb) + np.arange(tot, dtype=np.int64)
-            ]
-            dir_flat = (blk_flat << 5) | slot_of_span[span_of_blk]
-            row_of_blk = span_row[span_of_blk]
-            # column of each block within its row
-            rexcl = np.zeros(B + 1, dtype=np.int64)
-            rexcl[1:] = np.cumsum(row_nb)
-            col_of_blk = np.arange(tot, dtype=np.int64) - rexcl[row_of_blk]
-        else:
-            dir_flat = row_of_blk = col_of_blk = np.zeros(0, np.int64)
+            # --- per-query block directory
+            span_nb = unb[uinv] if len(terms) else np.zeros(0, np.int64)
+            row_nb = np.zeros(B, dtype=np.int64)
+            np.add.at(row_nb, span_row, span_nb)
+
+            # expand each span's blocks, query-major
+            tot = int(span_nb.sum())
+            if tot:
+                bexcl2 = np.cumsum(span_nb) - span_nb
+                span_of_blk = np.repeat(np.arange(len(span_nb)), span_nb)
+                blk_flat = ublocks[
+                    np.repeat(ustart[uinv] - bexcl2, span_nb) + np.arange(tot, dtype=np.int64)
+                ]
+                dir_flat = (blk_flat << 5) | slot_of_span[span_of_blk]
+                row_of_blk = span_row[span_of_blk]
+                # column of each block within its row
+                rexcl = np.zeros(B + 1, dtype=np.int64)
+                rexcl[1:] = np.cumsum(row_nb)
+                col_of_blk = np.arange(tot, dtype=np.int64) - rexcl[row_of_blk]
+            else:
+                dir_flat = row_of_blk = col_of_blk = np.zeros(0, np.int64)
 
         min_l = max(self.MIN_L, _pow2_at_least(k))
         Lrow = np.maximum(row_nb * BLOCK, 1)
@@ -629,19 +1415,33 @@ class ResidentEngine:
         }
 
     def prepare(self, queries, k=10, ops=("or", "and"), ranked=True, prune=False):
-        """Parse + lay out the batch (host only): the exhaustive plan."""
+        """Parse + lay out the batch. Host only for the exhaustive plan.
+        prune=True applies block-max skipping: ops=("and",) intersection
+        block skipping (and_skip), ops=("or",) WAND, prune="maxscore"
+        with ops=("or",) MaxScore; it builds the block-max metadata on
+        first use (_ensure_blockmax) and runs a probe sub-plan on the
+        device. A pruned plan carries plan["timings"] (seconds of each
+        prepare stage) and plan["probe_rows"] (rows the probe ran)."""
         bad_ops = set(ops) - {"counts", "or", "and"}
         if bad_ops:
             raise ValueError(
                 f"unknown ops {sorted(bad_ops)}: ResidentEngine ops are "
-                "'counts', 'or', 'and' (+ ranked=True for scored top-k)"
+                "'counts', 'or', 'and' (+ ranked=True for scored top-k; "
+                "wand/maxscore are prepare(prune=True, ops=('or',)))"
             )
+        if prune and (tuple(ops) not in (("or",), ("and",)) or not ranked):
+            raise ValueError(
+                "prune requires ranked ops=('or',) (WAND/MaxScore) or "
+                "ops=('and',) (intersection block skipping)"
+            )
+        timings = {}
+        t0 = time.perf_counter()
         if prune:
-            raise NotImplementedError(
-                "block-max pruning (prepare(prune=...)) is not ported yet: "
-                "ROADMAP queue 1 item 3 (AND pruning) and item 5 (OR pruning)"
-            )
+            self._ensure_blockmax()
+            timings["blockmax"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         terms, qw, counts = self._prep_terms(queries, ranked)
+        timings["parse"] = time.perf_counter() - t0
         qend = np.cumsum(counts)
         qstart = qend - counts
         tmax = _pow2_at_least(int(counts.max()) if len(counts) else 1, lo=2)
@@ -653,6 +1453,9 @@ class ResidentEngine:
                 f"ResidentEngine supports at most 32 unique terms per "
                 f"query (query {bad} has {int(counts[bad])})"
             )
+        if prune:
+            return self._prepare_pruned(terms, qw, counts, qstart, qend, k, tuple(ops), tmax,
+                                        prune, timings)
 
         # part splitting by bucketed (unpruned) slot budget
         qslots = np.zeros(len(queries), dtype=np.int64)
@@ -685,6 +1488,50 @@ class ResidentEngine:
                 )
             )
         return {"plans": plans, "n": len(queries), "k": k, "ops": tuple(ops)}
+
+    def _prepare_pruned(self, terms, qw, counts, qstart, qend, k, ops, tmax, prune, timings):
+        """prepare's pruned plan: the probe's thresholds, the batch's
+        pruned directory computed once, then parts split by the slots
+        that survive (_split_parts)."""
+        B = len(counts)
+        span_row = np.repeat(np.arange(B), counts)
+        mode = "and" if ops == ("and",) else "or"
+        self._probe_rows = 0
+        dir0 = None
+        t0 = time.perf_counter()
+        if mode == "or":
+            # phase 1: score only each term's top blocks by block max; the
+            # per-query k-th best is a TRUE achieved partial score, a much
+            # tighter threshold than the static single-term bound
+            pdir = self._pruned_directory(terms, qw, counts, k, span_row,
+                                          probe_rank=max(2, -(-2 * k // BLOCK)))
+            probe_theta = self._probe_theta(pdir, terms, qw, counts, k, tmax, "or")
+        else:
+            # phase 1 for AND: overlap-prune, then the docid-prefix probe
+            # on the still-heavy rows (_and_prefix_probe)
+            dir0 = self._pruned_directory(terms, qw, counts, k, span_row, mode="and")
+            timings["dir0"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            probe_theta = self._and_prefix_probe(dir0, terms, qw, counts, k, tmax)
+        timings["probe"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if mode == "and" and probe_theta is None:
+            full_dir = dir0  # no heavy rows: the phase-1 directory is final
+        else:
+            full_dir = self._pruned_directory(terms, qw, counts, k, span_row,
+                                              theta_override=probe_theta, mode=mode,
+                                              essential=(prune == "maxscore"))
+        timings["directory"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plans = [
+            self._part_plan(terms[qstart[q0]:qend[q1 - 1]], qw[qstart[q0]:qend[q1 - 1]],
+                            counts[q0:q1], k, ops, tmax, qids=np.arange(q0, q1),
+                            pruned_dir=pd)
+            for q0, q1, pd in self._split_parts(full_dir, counts)
+        ]
+        timings["part_plans"] = time.perf_counter() - t0
+        return {"plans": plans, "n": B, "k": k, "ops": ops, "timings": timings,
+                "probe_rows": self._probe_rows}
 
     def execute(self, plan):
         """Upload per-part layouts, dispatch, download results. A plan's
@@ -777,7 +1624,25 @@ class ResidentEngine:
         return [self._topk_list(r[2]) for r in self.run(queries, k=k, ops=("or",))]
 
     def ranked_and(self, queries, k=10, prune=False):
+        """prune=True skips blocks provably outside the intersection or
+        below the probe's threshold (and_skip; results identical)."""
         return [
             self._topk_list(r[3])
             for r in self.run(queries, k=k, ops=("and",), prune=prune)
+        ]
+
+    def wand(self, queries, k=10):
+        """Top-k OR with block-max pruning (wand_query semantics,
+        queries.hpp:200-319): results equal ranked_or's top-k; blocks
+        provably below the per-query threshold are skipped before decode,
+        shrinking both the decode set and the join width."""
+        return [self._topk_list(r[2]) for r in self.run(queries, k=k, ops=("or",), prune=True)]
+
+    def maxscore(self, queries, k=10):
+        """Top-k OR with MaxScore's candidate restriction on the block-max
+        directory (maxscore_query semantics, queries.hpp:478-591, at plan
+        time, _essential_restrict): results equal ranked_or's top-k."""
+        return [
+            self._topk_list(r[2])
+            for r in self.run(queries, k=k, ops=("or",), prune="maxscore")
         ]

@@ -40,11 +40,18 @@ _PAIR_ARGS = _PART_ARGS[:12] + [
     _p, _p,  # den_blocks, tile_gblk0 (bm25 mode, else NULL)
     _p,  # cudaStream_t
 ]
+_BLOCKMAX_ARGS = [
+    _p, _p, _p,  # docs int32 (rows, 32), w or freqs f32 (rows, 32), norm_den f32 (planes form, else NULL)
+    _ll, _i,  # rows, num_docs
+    _p, _p, _p, _p,  # wmax f32, dmax int32, dmin int32 (rows,), w plane f32 (planes form, else NULL)
+    _p,  # cudaStream_t
+]
 # entry point and argtypes of each kernel library (csrc/<name>.cu)
 ENTRY_POINTS = {
     "pair_decode": ("ds2i_pair_decode_part", _PAIR_ARGS),
     "optpfor_decode": ("ds2i_optpfor_decode_part", _PART_ARGS),
     "interp_decode": ("ds2i_interp_decode_part", _PART_ARGS),
+    "blockmax": ("ds2i_blockmax_rows", _BLOCKMAX_ARGS),
 }
 
 _LIBS = {}

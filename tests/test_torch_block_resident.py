@@ -6,6 +6,9 @@ and the norm cache exactly, decoded lists and boolean counts exactly,
 top-10 BM25 scores within rtol 1e-3 (the f16 download rounds at 2^-11,
 and XLA's f32 divide is not IEEE)."""
 
+import gc
+
+import jax
 import numpy as np
 import pytest
 import torch
@@ -28,6 +31,18 @@ from test_torch_resident import _assert_topk_close, _plan_arrays
 
 NQ = 24  # queries per check
 BLOCK_TYPES = ["block_optpfor", "block_interpolative"]
+
+
+@pytest.fixture(autouse=True)
+def _clear_jax_caches_per_test():
+    """Release the JAX executables each test compiled before the next
+    one (the fixture of tests/test_wand_device.py): this module's JAX
+    engines compile large XLA-CPU programs, and a full suite's
+    live-executable population is what crashes XLA-CPU's compiler in a
+    worker."""
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 
 @pytest.fixture(scope="module")
@@ -113,16 +128,24 @@ def test_every_tile_decodes_as_the_host(setup, name):
             np.concatenate([decoded["freqs"][t, :nvals[t]] for t in tiles]), hf, err_msg=f"list {li}")
 
 
+@pytest.fixture(scope="module")
+def small_parts(coll, setup):
+    """name -> (port engine, JAX engine) over setup's indexes with small
+    part budgets, built once for every plan case."""
+    kw = dict(max_part_slots=1 << 13, max_part_queries=32)
+    port_wdata = build_wdata(coll, "port")
+    return {name: (ResidentEngine(setup[name][4], port_wdata, device="cpu", **kw),
+                   JaxResidentEngine(setup[name][0], setup[name][1], **kw))
+            for name in BLOCK_TYPES}
+
+
 @pytest.mark.parametrize("ops", [("and",), ("or",), ("counts",)])
 @pytest.mark.parametrize("name", BLOCK_TYPES)
-def test_plan_arrays_match_jax(coll, setup, name, ops):
+def test_plan_arrays_match_jax(coll, small_parts, name, ops):
     """Small part budgets force several parts; every plan array equals the
     JAX engine's, gtile_f, blkperm and groups_f included."""
-    index, wdata, _, _, port_index = setup[name]
+    port, ref = small_parts[name]
     qs = read_queries(coll + ".queries")
-    kw = dict(max_part_slots=1 << 13, max_part_queries=32)
-    port = ResidentEngine(port_index, build_wdata(coll, "port"), device="cpu", **kw)
-    ref = JaxResidentEngine(index, wdata, **kw)
     ranked = ops != ("counts",)
     got = port.prepare(qs, k=10, ops=ops, ranked=ranked)
     exp = ref.prepare(qs, k=10, ops=ops, ranked=ranked)

@@ -1,7 +1,8 @@
 """The port on the card: each CUDA kernel (the part-level EF pair
 decode, OptPFor and interpolative block decode, launch by launch and as
-a whole part) against its plain PyTorch version, and ResidentEngine on
-CUDA against the same engine on the CPU.
+a whole part; the block-max pass in both forms) against its plain
+PyTorch version, and ResidentEngine on CUDA against the same engine on
+the CPU, exhaustive and pruned.
 
 Every test here is marked `cuda` and skips where torch.cuda.is_available()
 is False. The card's machine has no jax, so run them there without the
@@ -14,12 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from ds2i_torch.engine import ResidentEngine
+from ds2i_torch.engine import ResidentEngine, resident
 from ds2i_torch.host import (
     BinaryFreqCollection, GlobalParameters, WandData, generate_collection,
     make_index_type, read_queries, read_sizes,
 )
 from ds2i_torch.ops import block_decode, pair_decode
+from ds2i_torch.ops.blockmax import blockmax_rows, blockmax_rows_torch
 from ds2i_torch.ops.block_decode import (
     KERNELS, PartLayout, decode_launch_torch, interp_decode, optpfor_decode, split_decode_part,
     split_decode_part_torch,
@@ -258,3 +260,77 @@ def test_engine_on_cuda_equals_engine_on_cpu(cuda, coll, name):
     np.testing.assert_array_equal(gpu.or_counts(queries), cpu.or_counts(queries))
     assert gpu.ranked_and(queries, k=10) == cpu.ranked_and(queries, k=10)
     assert gpu.ranked_or(queries, k=10) == cpu.ranked_or(queries, k=10)
+
+
+BLOCKMAX_FIELDS = (
+    "wmax_blk", "dmax_blk", "dmin_blk", "gblk0", "tile_of_gblk", "list_gblk0",
+    "list_wmax", "_kth_vals", "_kth_start", "rank_blk", "_blk_dlo",
+    "_dmax_keys", "_dlo_keys", "_pyr", "_pyr_off", "_pyr_q",
+    "is_short", "_short_keys", "_short_w",
+)
+
+
+@pytest.mark.parametrize("name", ["opt", "block_optpfor"])
+def test_blockmax_kernel_matches_plain(cuda, coll, name):
+    """blockmax's one launch against blockmax_rows_torch on the card, bit
+    for bit: rows form over every tile's BM25 decode (pair mode's w
+    unmasked), planes form over seeded planes with pad slots and rows
+    with no valid slot; one counted launch per call."""
+    wdata = WandData.build(read_sizes(coll), BinaryFreqCollection(coll))
+    eng = ResidentEngine(build(coll, name), wdata, device=cuda)
+    eng._ensure_norm_cache()
+    docs32, w32, _, _, _ = resident._decode_slots_step(eng.state, eng.all_tiles_part(), eng.num_docs)
+    rng = np.random.RandomState(0)
+    nd = eng.num_docs
+    docs = np.sort(rng.randint(0, nd, (5000, 32)), axis=1).astype(np.int32)
+    pad = rng.rand(5000, 32) < 0.3
+    pad[:9] = True
+    docs[pad] = nd
+    freqs = np.where(pad, 0, rng.randint(1, 60, (5000, 32))).astype(np.float32)
+    planes = (torch.from_numpy(docs).to(cuda), torch.from_numpy(freqs).to(cuda), eng.state.norm_den)
+    for args in ((docs32, w32, None), planes):
+        before = blockmax_rows.launches
+        got = blockmax_rows(args[0], args[1], nd, args[2])
+        torch.cuda.synchronize()
+        assert blockmax_rows.launches == before + 1
+        exp = blockmax_rows_torch(args[0], args[1], nd, args[2])
+        for g, e in zip(got, exp):
+            if e is None:
+                assert g is None
+            else:
+                _same_bits(g, e)
+
+
+def test_blockmax_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    d = torch.zeros((4, 32), dtype=torch.int32, device=cuda)
+    w = torch.zeros((4, 32), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        blockmax_rows(d.long(), w, 10)
+    with pytest.raises(ValueError, match="rows, 32"):
+        blockmax_rows(d[:, :16].contiguous(), w[:, :16].contiguous(), 10)
+    with pytest.raises(ValueError, match="norm_den"):
+        blockmax_rows(d, w, 10, torch.ones(9, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        blockmax_rows(d.t(), w, 10)
+
+
+@pytest.mark.parametrize("name", ["opt", "block_optpfor"])
+def test_pruned_engine_on_cuda_equals_engine_on_cpu(cuda, coll, name):
+    """The block-max metadata of the CUDA engine's decode pass and
+    collection pass are byte-equal to the CPU engine's; the pruned
+    ranked_and and wand give the CPU engine's results."""
+    index = build(coll, name)
+    c = BinaryFreqCollection(coll)
+    wdata = WandData.build(read_sizes(coll), c)
+    queries = read_queries(coll + ".queries")
+    gpu = ResidentEngine(index, wdata, device=cuda)
+    host = ResidentEngine(index, wdata, device=cuda)
+    cpu = ResidentEngine(index, wdata, device="cpu")
+    gpu._ensure_blockmax()
+    host.build_blockmax(c)
+    cpu._ensure_blockmax()
+    for field in BLOCKMAX_FIELDS:
+        np.testing.assert_array_equal(getattr(gpu, field), getattr(cpu, field), err_msg=field)
+        np.testing.assert_array_equal(getattr(host, field), getattr(cpu, field), err_msg=field)
+    assert gpu.ranked_and(queries, k=10, prune=True) == cpu.ranked_and(queries, k=10, prune=True)
+    assert gpu.wand(queries, k=10) == cpu.wand(queries, k=10)

@@ -2,9 +2,10 @@
 fresh interpreter whose import system refuses every jax and ds2i_tpu
 module, import the port, serve a CPU ranked_and over an `opt` index
 (pair mode) and a `block_optpfor` index (split mode) against the numpy
-oracle, and check neither loaded. Each module a caller may import first
-loads in a fresh interpreter (no import cycle breaks it). And no file of
-the port, nor chip_smoke.py, names ds2i_tpu in an import."""
+oracle (and, over block_optpfor, the pruned ranked_and too), and check
+neither loaded. Each module a caller may import first loads in a fresh
+interpreter (no import cycle breaks it). And no file of the port, nor
+chip_smoke.py, names ds2i_tpu in an import."""
 
 import ast
 import os
@@ -40,6 +41,7 @@ _SCRIPT = textwrap.dedent("""
     import ds2i_torch.engine.block_tiles
     import ds2i_torch.kernels
     import ds2i_torch.ops.block_decode
+    import ds2i_torch.ops.blockmax
     import ds2i_torch.ops.pair_decode
     from ds2i_torch.engine import ResidentEngine
     from ds2i_torch.host import (
@@ -61,11 +63,18 @@ _SCRIPT = textwrap.dedent("""
         eng = ResidentEngine(index, wdata, device="cpu")
         assert eng.split == (name == "block_optpfor")
         got = eng.ranked_and(queries, k=10)
-        for g, q in zip(got, queries):
+        if name == "block_optpfor":
+            pruned = eng.ranked_and(queries, k=10, prune=True)
+            assert eng.wmax_blk is not None
+        for i, (g, q) in enumerate(zip(got, queries)):
             e = ranked_and_query(index, wdata, q, k=10)
             assert len(g) == len(e), (name, q)
             if e:
                 np.testing.assert_allclose(g, e, rtol=1e-3)
+            if name == "block_optpfor":
+                assert len(pruned[i]) == len(e), (name, q)
+                if e:
+                    np.testing.assert_allclose(pruned[i], e, rtol=1e-3)
     loaded = sorted(m for m in sys.modules if blocked(m))
     assert not loaded, loaded
     print("NOJAX_OK", len(queries))
@@ -85,7 +94,8 @@ def test_port_imports_and_serves_without_jax(tmp_path):
 
 @pytest.mark.parametrize("module", [
     "ds2i_torch.kernels", "ds2i_torch.ops.block_decode", "ds2i_torch.ops.pair_decode",
-    "ds2i_torch.engine", "ds2i_torch.engine.block_tiles", "ds2i_torch.host",
+    "ds2i_torch.ops.blockmax", "ds2i_torch.engine", "ds2i_torch.engine.block_tiles",
+    "ds2i_torch.host",
 ])
 def test_module_imports_first(tmp_path, module):
     """chip_smoke.py imports ds2i_torch.kernels, then ds2i_torch.ops: each

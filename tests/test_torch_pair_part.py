@@ -14,6 +14,9 @@ compute one IEEE f32 add and one IEEE f32 divide of the same f32
 operands, unmasked, so a pad slot's weight is 0 / (0 + den) = +0.0 on
 both; the bit comparison pins that sign, which `==` would not."""
 
+import gc
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -38,6 +41,18 @@ from test_torch_host_copy import build_index, build_wdata
 EF_TYPES = ["ef", "single", "uniform", "opt"]
 KW = dict(max_part_slots=1 << 13, max_part_queries=16)
 NQ = 17  # two parts: 16 queries and 1
+
+
+@pytest.fixture(autouse=True)
+def _clear_jax_caches_per_test():
+    """Release the JAX executables each test compiled before the next
+    one (the fixture of tests/test_wand_device.py): this module's JAX
+    engines compile large XLA-CPU programs, and a full suite's
+    live-executable population is what crashes XLA-CPU's compiler in a
+    worker."""
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 
 @pytest.fixture(scope="module")

@@ -5,6 +5,9 @@ and the norm cache exactly, boolean counts exactly, top-10 BM25 scores
 within rtol 1e-3 (the f16 download rounds at 2^-11, and XLA's f32 divide
 is not IEEE)."""
 
+import gc
+
+import jax
 import numpy as np
 import pytest
 
@@ -21,6 +24,18 @@ from ds2i_torch.engine import ResidentEngine, resident_state_from_arrays
 from test_torch_host_copy import assert_same_walk, build_index, build_wdata
 
 NQ = 24  # queries per check; the JAX interpret-mode engine compiles per layout
+
+
+@pytest.fixture(autouse=True)
+def _clear_jax_caches_per_test():
+    """Release the JAX executables each test compiled before the next
+    one (the fixture of tests/test_wand_device.py): this module's JAX
+    engines compile large XLA-CPU programs, and a full suite's
+    live-executable population is what crashes XLA-CPU's compiler in a
+    worker."""
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 
 @pytest.fixture(scope="module")
@@ -65,16 +80,23 @@ def _plan_arrays(plan):
     return out
 
 
+@pytest.fixture(scope="module")
+def small_parts(coll):
+    """(port engine, JAX engine) over `opt` with small part budgets,
+    built once for every plan case."""
+    assert_same_walk()
+    kw = dict(max_part_slots=1 << 13, max_part_queries=32)
+    return (ResidentEngine(build_index(coll, "opt", "port"), build_wdata(coll, "port"),
+                           device="cpu", **kw),
+            JaxResidentEngine(build_index(coll, "opt", "ref"), build_wdata(coll, "ref"), **kw))
+
+
 @pytest.mark.parametrize("ops", [("and",), ("or",), ("counts",)])
-def test_plan_arrays_match_jax(coll, ops):
+def test_plan_arrays_match_jax(coll, small_parts, ops):
     """Small part budgets force several parts; every plan array equals the
     JAX engine's (both engines are built with the same budgets)."""
-    assert_same_walk()
+    port, ref = small_parts
     qs = read_queries(coll + ".queries")
-    kw = dict(max_part_slots=1 << 13, max_part_queries=32)
-    port = ResidentEngine(build_index(coll, "opt", "port"), build_wdata(coll, "port"),
-                          device="cpu", **kw)
-    ref = JaxResidentEngine(build_index(coll, "opt", "ref"), build_wdata(coll, "ref"), **kw)
     ranked = ops != ("counts",)
     got = port.prepare(qs, k=10, ops=ops, ranked=ranked)
     exp = ref.prepare(qs, k=10, ops=ops, ranked=ranked)
@@ -149,10 +171,7 @@ def test_duplicate_terms(setup, name):
     assert port.and_counts([[5, 5]])[0] == and_query(index, [5, 5])
 
 
-def test_unported_paths_raise(coll, setup, queries):
-    _, _, port, _, _ = setup["opt"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.prepare(queries, ops=("and",), prune=True)
+def test_unported_paths_raise(coll):
     c = PortCollection(coll)
     b = port_index_type("block_varint").builder(c.num_docs, PortParams())
     for i, (docs, freqs) in enumerate(c):

@@ -9,6 +9,9 @@ IEEE f32 add and one IEEE f32 divide of the same f32 operands (freqs are
 exact in f32, den comes from equal norm caches), and XLA on the CPU
 rounds them as PyTorch does."""
 
+import gc
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +33,18 @@ from test_torch_host_copy import assert_same_walk, build_index, build_wdata
 
 BLOCK_TYPES = ["block_optpfor", "block_interpolative"]
 KW = dict(max_part_slots=1 << 13, max_part_queries=16)
+
+
+@pytest.fixture(autouse=True)
+def _clear_jax_caches_per_test():
+    """Release the JAX executables each test compiled before the next
+    one (the fixture of tests/test_wand_device.py): this module's JAX
+    engines compile large XLA-CPU programs, and a full suite's
+    live-executable population is what crashes XLA-CPU's compiler in a
+    worker."""
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 
 @pytest.fixture(scope="module")
