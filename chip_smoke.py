@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the ds2i_torch port on one CUDA card.
 
-Drives the port's three main paths once at bench.py's default scale:
-top-10 BM25 ranked_and over the deterministic 10k-doc / 2M-posting
-collection with its 35k-query log, first over a partitioned Elias-Fano
-(`opt`) index in pair mode, then over a `block_optpfor` index in split
-mode (bench.py's default index type), exhaustive and then block-max
-pruned (bench.py's default op, and_skip).
+Drives the port's main paths once at bench.py's default scale: top-10
+BM25 ranked_and over the deterministic 10k-doc / 2M-posting collection
+with its 35k-query log, first over a partitioned Elias-Fano (`opt`)
+index in pair mode, then over a `block_optpfor` index in split mode
+(bench.py's default index type), exhaustive and then block-max pruned
+(bench.py's default op, and_skip), then over the other block codecs:
+`block_varint`, `block_qmx` and `block_mixed`.
 
   1. card name and power limit (nvidia-smi), torch and CUDA versions
   2. build the CUDA kernels from csrc/ (one nvcc per source, all at
@@ -37,12 +38,14 @@ pruned (bench.py's default op, and_skip).
      ranked_and(prune=True) against the exhaustive ranked_and on them
      (pair mode's block-max decode pass and probe)
   block_optpfor path (split mode, kernels optpfor_decode and
-  interp_decode, one launch per kernel and stream of a part): the kernel
-  phase per kernel over every tile (each launch mode against its plain
-  version, the whole all-tiles part against split_decode_part_torch),
-  the slice phase (launches a pass: at most 2 a part per kernel), the
-  part phase (every part of the slice's plan against the plain version;
-  each kernel's launches of one pass timed) and the oracle phase
+  interp_decode, one launch per kernel and stream of a part; block_path):
+  the kernel phase over every tile (each kernel's launches in every mode
+  against its plain version, the whole all-tiles part against
+  split_decode_part_torch, 200 lists against the host decoder; each
+  kernel timed beside its bound), the slice phase (launches a pass: at
+  most 2 a part per kernel), the part phase (every part of the slice's
+  plan against the plain version; each kernel's launches of one pass
+  timed) and the oracle phase
   block_optpfor and_skip path (bench.py's default: block-max pruned
   ranked_and; kernels blockmax, optpfor_decode and interp_decode):
   8. every count set to 0, then build_blockmax over the collection
@@ -58,7 +61,15 @@ pruned (bench.py's default op, and_skip).
      in both forms over every block, timed through the wrapper, alone
      and plain, beside its bound by bytes
   10. block_interpolative: a smaller oracle-only run (100 queries)
-  11. the kernels' JSON line, then {"ok": true, "device": {...}} last
+  11. block_varint (kernels varint_decode and interp_decode), block_qmx
+     (qmx_decode and interp_decode) and block_mixed (rebuild_mixed over
+     the block_optpfor index, each stream's codec drawn from a seed:
+     optpfor_decode with exception patches, varint_decode,
+     interp_decode): each a block path as above (a kernel first met here
+     timed) and its and_skip path; on block_qmx and block_mixed with the
+     second engine's decode pass
+  12. the script's wall time, the kernels' JSON line, then {"ok": true,
+     "device": {...}} last
 
 Exits non-zero, printing no result, without a CUDA device or when any
 check fails. Scale: DS2I_BENCH_DOCS / _POSTINGS / _TERMS / _QUERIES as
@@ -174,6 +185,20 @@ def build_index(coll, name):
     index = b.build()
     log(f"{name} index: {index.size()} lists ({time.perf_counter() - t0:.1f} s)")
     return index
+
+
+def build_mixed_index(index):
+    """block_mixed over the block_optpfor `index` (ds2i_torch's
+    rebuild_mixed, each stream's codec drawn by mixed_choices: the
+    reference picks it by predicted decode time, from a predictors file
+    this repository does not have)."""
+    from ds2i_torch.host import mixed_choices, rebuild_mixed
+
+    t0 = time.perf_counter()
+    mixed = rebuild_mixed(index, *mixed_choices(index))
+    log(f"block_mixed index (rebuild_mixed over block_optpfor): {mixed.size()} lists "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return mixed
 
 
 def start_engine(index, wdata):
@@ -453,24 +478,55 @@ def interp_code_words(eng, part, docs32, freq32):
     return out
 
 
+def qmx_payload_bytes(eng, rows, fields, NI, S):
+    """Per QMX row (fields of the rows' stream), the payload bytes its
+    decode reads: ADV_OF_TYPE of each of its first min(ninst, NI)
+    instances, their types from its first min(nsel, S) selectors (read
+    from the index bytes, walking back from its last byte); and the
+    distinct types of those instances."""
+    from ds2i_torch.codecs.qmx import ADV_OF_TYPE
+    from ds2i_torch.engine.block_tiles import BF_B, BF_EX_BOFF, BF_EX_W0, BF_NEX
+
+    data = np.asarray(eng.index.lists, dtype=np.uint8)
+    f = fields[rows]
+    s = np.arange(S, dtype=np.int64)[None, :]
+    pos = (4 * f[:, BF_EX_W0] + f[:, BF_EX_BOFF])[:, None] - s
+    sel = data[np.clip(pos, 0, len(data) - 1)].astype(np.int64)
+    valid = s < f[:, BF_NEX, None]
+    batch = np.where(valid, 16 - (sel & 15), 0)
+    types = np.minimum(np.where(valid, sel >> 4, 0), 14)
+    adv = np.asarray(ADV_OF_TYPE, np.int64)[types]
+    cum = np.cumsum(batch, axis=1)
+    cap = np.minimum(f[:, BF_B], NI)[:, None]
+    take = np.clip(np.minimum(cum, cap) - (cum - batch), 0, None)  # instances of each selector read
+    return (take * adv).sum(axis=1), np.unique(types[take > 0])
+
+
 def block_launch_bytes(eng, launch, gtile_host, mode, code_words):
     """The bytes one launch of a block kernel must move on this run's data,
     each input read once and each output written once: every row's map
     entry; a pad row's n_vals; a real row's fields the decode needs (K1:
-    BF_W0, BF_BOFF, F_NVALS, with patches BF_NEX and BF_EX_BASE; K2:
-    BF_W0, BF_BOFF, F_NVALS and the sum; docs also F_BASE), its code words
-    (K1: the 128 b-bit slots from BF_BOFF, and its min(n_ex, E) patch
-    pairs; K2: code_words) and, for BM25 weights, its tile_gblk0 entry and
-    the blkperm entry, freq and den of each valid slot's block and slot;
-    each output block written (out, and w for weights)."""
-    from ds2i_torch.engine.block_tiles import BF_BOFF, BF_NEX
+    BF_W0, BF_BOFF, F_NVALS, with patches BF_NEX and BF_EX_BASE; K7:
+    BF_W0, BF_B, BF_BOFF, F_NVALS; K8: BF_W0, BF_B, BF_NEX, BF_EX_W0,
+    BF_BOFF, BF_EX_BOFF, F_NVALS; K2: BF_W0, BF_BOFF, F_NVALS and the sum;
+    docs also F_BASE), its code (K1: the words of the 128 b-bit slots from
+    BF_BOFF, and its min(n_ex, E) patch pairs; K7: 9 bytes a group; K8: its
+    selector bytes and the payload bytes of its instances
+    (qmx_payload_bytes); K2: code_words) and, for BM25 weights, its
+    tile_gblk0 entry and the blkperm entry, freq and den of each valid
+    slot's block and slot; for K8, once a launch, the lane-table words of
+    the types its instances take (min(INTS_OF_TYPE, 128) lane entries and
+    one meta word a type); each output block written (out, and w for
+    weights)."""
+    from ds2i_torch.codecs.qmx import INTS_OF_TYPE
+    from ds2i_torch.engine.block_tiles import BF_B, BF_BOFF, BF_NEX
     from ds2i_torch.engine.tiles import F_NVALS
 
     is_docs = mode != "freqs"
     fields = (eng.tiles.docs if is_docs else eng.tiles.freqs).astype(np.int64)
     nvals = eng.tiles.docs[:, F_NVALS].astype(np.int64)
     nt = eng.pad_tile
-    nbytes = 0
+    nbytes, qmx_types = 0, set()
     for p1, p2, T, row0, n, _ in launch.host.tolist():
         ids = gtile_host[row0:row0 + n].astype(np.int64)
         r = ids[ids < nt]
@@ -484,23 +540,34 @@ def block_launch_bytes(eng, launch, gtile_host, mode, code_words):
             words = (fields[r, BF_BOFF] + 128 * bs + 31) // 32 if bs else np.zeros(len(r), np.int64)
             npatch = np.minimum(fields[r, BF_NEX], p2) if p2 else np.zeros(len(r), np.int64)
             nbytes += 4 * nf * len(r) + 4 * int(words.sum()) + 8 * int(npatch.sum())
+        elif launch.kernel == "varint":
+            nf = 4 + (1 if is_docs else 0)
+            nbytes += 4 * nf * len(r) + 9 * int(np.minimum(fields[r, BF_B], p1).sum())
+        elif launch.kernel == "qmx":
+            nf = 7 + (1 if is_docs else 0)
+            nsel = int(np.minimum(fields[r, BF_NEX], p2).sum())
+            payload, types = qmx_payload_bytes(eng, r, fields, p1, p2)
+            nbytes += 4 * nf * len(r) + nsel + int(payload.sum())
+            qmx_types.update(types.tolist())
         else:
             nf = 4 + (1 if is_docs else 0)
             nbytes += 4 * nf * len(r) + 4 * int(code_words[is_docs][r].sum())
-    return nbytes
+    return nbytes + 4 * sum(min(INTS_OF_TYPE[t], 128) + 1 for t in qmx_types)
 
 
-def block_kernel_phase(eng, index):
+def block_kernel_phase(eng, index, tag, timed):
     """Every tile of the split-mode index as one part
     (ResidentEngine.all_tiles_part): the whole part through
     split_decode_part against split_decode_part_torch, and 200 lists
     against the host decoder; then each block kernel's one launch per
     stream, in each mode the engine uses (freqs; docs with BM25 weights;
-    docs alone, the norm cache's), through the wrapper and through
-    decode_launch_torch on the card: bit equality, both times per kernel
-    (the freqs and the BM25 docs launch, as a ranked part runs them), the
-    bound. Returns the two kernels' JSON entries (launches filled later)
-    and each tile's interpolative code words (interp_code_words)."""
+    docs alone, the norm cache's; docs with presence flags), through the
+    wrapper and through decode_launch_torch on the card: bit equality;
+    for the kernels in `timed`, both times per kernel (the freqs and the
+    BM25 docs launch, as a ranked part runs them) and the bound. Returns
+    the JSON entries of the timed kernels the index launches (launches
+    filled later) and each tile's interpolative code words
+    (interp_code_words)."""
     import torch
 
     from ds2i_torch.engine.tiles import F_NVALS
@@ -526,7 +593,7 @@ def block_kernel_phase(eng, index):
     torch.cuda.synchronize()
     if not (torch.equal(gd, pd) and torch.equal(gw, pw)):
         raise AssertionError("split_decode_part differs from split_decode_part_torch over every tile")
-    log(f"block kernel phase: split_decode_part over every tile ({lay.nb_d} docs blocks, "
+    log(f"{tag} kernel phase: split_decode_part over every tile ({lay.nb_d} docs blocks, "
         f"{lay.nb_f} freqs blocks) == split_decode_part_torch, docs32 and w32 bit for bit")
 
     # 200 random lists against the host decoder
@@ -544,7 +611,7 @@ def block_kernel_phase(eng, index):
         hd, hf = index.decode_list(int(li))
         if not (np.array_equal(docs, hd) and np.array_equal(freqs, hf)):
             raise AssertionError(f"list {li}: CUDA block decode differs from index.decode_list")
-    log(f"block kernel phase: {len(lists)} random lists equal index.decode_list")
+    log(f"{tag} kernel phase: {len(lists)} random lists equal index.decode_list")
     code_words = interp_code_words(eng, part, docs_h, freq_h)
 
     docs_buf = torch.empty((lay.nb_d, 32), dtype=torch.int32, device=dev)
@@ -559,27 +626,37 @@ def block_kernel_phase(eng, index):
     entries = []
     for kernel in KERNELS:
         wrapper = WRAPPERS[kernel]
-        if not lay.launch(kernel, True, dev).n_cta:
+        if not any(lay.launch(kernel, d, dev).n_cta for d in (True, False)):
             continue
         max_err = 0.0
-        for mode in ("freqs", "bm25", "docs"):
+        for mode in ("freqs", "bm25", "docs", "presence"):
             launch, table, gtile = launch_args(kernel, mode)
             nb = lay.nb_d if mode != "freqs" else lay.nb_f
             res = []
             for fn in (wrapper, decode_launch_torch):
                 out = torch.full((nb, 32), -7, dtype=torch.int32, device=dev)
-                w = torch.full((nb, 32), -7.0, device=dev) if mode == "bm25" else None
+                w = torch.full((nb, 32), -7.0, device=dev) if mode in ("bm25", "presence") else None
                 fn(launch, s.docs_words, table, gtile, mode, nd, out, w, freq, bp,
                    s.den_blocks, s.tile_gblk0)
                 res.append((out, w))
             torch.cuda.synchronize()
             (go, gw), (po, pw) = res
             max_err = max(max_err, float((go.long() - po.long()).abs().max()))
+            same = _same_bits(go, po)
             if gw is not None:
                 max_err = max(max_err, float((gw - pw).abs().max()))
-        if max_err != 0:
-            raise AssertionError(f"{wrapper.__name__} differs from decode_launch_torch: "
-                                 f"max |err| {max_err}")
+                same = same and _same_bits(gw, pw)
+            if not same:
+                raise AssertionError(f"{wrapper.__name__} ({mode}) differs from "
+                                     f"decode_launch_torch: max |err| {max_err}")
+        rows = sum(int(lay.launch(kernel, d, dev).host[:, 4].sum()) for d in (True, False))
+        ctas = [lay.launch(kernel, d, dev).n_cta for d in (True, False)]
+        log(f"{tag} kernel phase: {wrapper.__name__}: one launch per stream over every tile "
+            f"({rows} rows of both streams, {ctas[0]} + {ctas[1]} CTAs), modes freqs, docs+BM25 "
+            f"weights, docs alone and docs+presence: CUDA == plain bit for bit (max |err| "
+            f"{max_err})")
+        if kernel not in timed:
+            continue
 
         def run(fn):
             for mode in ("freqs", "bm25"):
@@ -594,12 +671,7 @@ def block_kernel_phase(eng, index):
         nbytes = sum(block_launch_bytes(eng, launch_args(kernel, mode)[0], host[mode != "freqs"],
                                         mode, code_words) for mode in ("freqs", "bm25"))
         bound_ms, bound_by = bound(nbytes)
-        rows = sum(int(lay.launch(kernel, d, dev).host[:, 4].sum()) for d in (True, False))
-        ctas = [lay.launch(kernel, d, dev).n_cta for d in (True, False)]
-        log(f"block kernel phase: {wrapper.__name__}: one launch per stream over every tile "
-            f"({rows} rows of both streams, {ctas[0]} + {ctas[1]} CTAs), modes freqs, docs+BM25 "
-            f"weights and docs alone: CUDA == plain bit for bit (max |err| {max_err})")
-        log(f"block kernel phase: {wrapper.__name__}: freqs + BM25 docs launches, every tile: "
+        log(f"{tag} kernel phase: {wrapper.__name__}: freqs + BM25 docs launches, every tile: "
             f"kernel {ms:.4f} ms through the wrapper, {fmt_ms(dev_ms)} alone, plain PyTorch "
             f"{plain_ms:.4f} ms (median of 5); bound {bound_ms:.4f} ms by {bound_by} "
             f"({nbytes} bytes)")
@@ -609,6 +681,8 @@ def block_kernel_phase(eng, index):
             "route": "cuda",
             "source": f"ds2i_torch/csrc/{name}.cu",
             "replaces": {"optpfor_decode": "ds2i_tpu/ops/optpfor_device.py:78",
+                         "varint_decode": "ds2i_tpu/ops/varint_device.py:24",
+                         "qmx_decode": "ds2i_tpu/ops/qmx_device.py:55",
                          "interp_decode": "ds2i_tpu/ops/interp_device.py:71"}[name],
             "launches": None,
             "max_abs_err": max_err,
@@ -616,12 +690,14 @@ def block_kernel_phase(eng, index):
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            "library_ms": None,  # no single PyTorch call decodes OptPFor or interpolative
+            # no single PyTorch call decodes OptPFor, Varint-G8IU, QMX or
+            # interpolative codes
+            "library_ms": None,
         })
     return entries, code_words
 
 
-def part_kernel_phase(eng, plan, code_words):
+def part_kernel_phase(eng, plan, code_words, tag):
     """Over every part of the slice's plan: split_decode_part on the card
     against split_decode_part_torch, bit for bit; then each block
     kernel's launches of one ranked pass (freqs and BM25 docs, every
@@ -651,8 +727,8 @@ def part_kernel_phase(eng, plan, code_words):
             if launch.n_cta:
                 WRAPPERS[kernel](launch, s.docs_words, s.tiles_freqs, gf, "freqs", nd, freq)
         parts.append((p, gt, gf, bp, lay, freq, gd.clone(), gw.clone()))
-    log(f"part phase: split_decode_part == split_decode_part_torch on all {len(parts)} parts "
-        f"of the slice's plan, docs32 and w32 bit for bit")
+    log(f"{tag} part phase: split_decode_part == split_decode_part_torch on all {len(parts)} "
+        f"parts of the slice's plan, docs32 and w32 bit for bit")
     for kernel in KERNELS:
         wrapper = WRAPPERS[kernel]
 
@@ -677,9 +753,9 @@ def part_kernel_phase(eng, plan, code_words):
                      for p, _, _, _, lay, _, _, _ in parts
                      for mode, key in (("freqs", "gtile_f"), ("bm25", "gtile_ids")))
         bound_ms, bound_by = bound(nbytes)
-        log(f"part phase: {wrapper.__name__}: one ranked pass, {n} launches: {ms:.4f} ms through "
-            f"the wrapper, {fmt_ms(dev_ms)} alone (median of 5); bound {bound_ms:.4f} ms by "
-            f"{bound_by} ({nbytes} bytes)")
+        log(f"{tag} part phase: {wrapper.__name__}: one ranked pass, {n} launches: {ms:.4f} ms "
+            f"through the wrapper, {fmt_ms(dev_ms)} alone (median of 5); bound {bound_ms:.4f} ms "
+            f"by {bound_by} ({nbytes} bytes)")
 
 
 def slice_phase(eng, queries, wrappers, tag, prune=False):
@@ -744,8 +820,8 @@ def main_path(eng, queries, path_kernels, tag, prune=False, before=None):
     Returns the plan and the last pass's results."""
     from ds2i_torch.ops import block_decode, blockmax, pair_decode
 
-    all_wrappers = (pair_decode.decode_pair, block_decode.optpfor_decode,
-                    block_decode.interp_decode, blockmax.blockmax_rows)
+    all_wrappers = (pair_decode.decode_pair, *block_decode.WRAPPERS.values(),
+                    blockmax.blockmax_rows)
     for w in all_wrappers:
         w.launches = 0
     if before is not None:
@@ -844,66 +920,67 @@ def dir_blocks(plan):
     return sum(int((b["dir"] != p["sent_dir"]).sum()) for p in plan["plans"] for b in p["buckets"])
 
 
-def and_skip_path(eng, index, coll, wdata, queries, exhaustive_plan, exhaustive_res):
-    """bench.py's default path on the block_optpfor engine: build_blockmax
-    over the collection (blockmax in planes form), prepare(prune=True,
-    ops=("and",)) with its probe on the card, 1 warmup + PASSES timed
-    passes, counts set to 0 before build_blockmax. Then: the decode pass
-    (_ensure_blockmax, rows form) on a second engine, every pruning table
-    byte-equal to the collection pass's; the full log against the
-    exhaustive ranked_and of the same engine; wand and maxscore against
-    ranked_or. Returns the decode-pass engine (for blockmax_phase) and
-    blockmax's JSON entry (launches from this path, the rest filled by
-    blockmax_phase)."""
+def and_skip_path(eng, index, coll, wdata, queries, exhaustive_plan, exhaustive_res, tag,
+                  decode_wrappers, entry=None, second_engine=True):
+    """bench.py's default path (and_skip) on a split-mode engine:
+    build_blockmax over the collection (blockmax in planes form),
+    prepare(prune=True, ops=("and",)) with its probe on the card, 1 warmup
+    + PASSES timed passes, counts set to 0 before build_blockmax; blockmax
+    and every decode wrapper given must launch. Then: the full log against
+    the exhaustive ranked_and of the same engine; the decode pass
+    (_ensure_blockmax, rows form) on a second engine (second_engine), every
+    pruning table byte-equal to the collection pass's; wand and maxscore
+    against ranked_or. Returns the decode-pass engine (or None) and
+    blockmax's JSON entry (`entry` takes the launches of this path; the
+    rest is filled by blockmax_phase)."""
     import torch
 
-    from ds2i_torch.ops import block_decode, blockmax
-
-    entry = {"name": "blockmax", "route": "cuda", "source": "ds2i_torch/csrc/blockmax.cu",
-             "replaces": "ds2i_tpu/engine/resident.py:358"}
+    from ds2i_torch.ops import blockmax
 
     def build():
         t0 = time.perf_counter()
         eng.build_blockmax(coll)
         torch.cuda.synchronize()
-        log(f"and_skip: build_blockmax over the collection {time.perf_counter() - t0:.2f} s "
-            f"({len(eng.wmax_blk)} blocks, {blockmax.blockmax_rows.launches} blockmax launches, "
-            f"planes form)")
+        log(f"{tag} and_skip: build_blockmax over the collection {time.perf_counter() - t0:.2f} "
+            f"s ({len(eng.wmax_blk)} blocks, {blockmax.blockmax_rows.launches} blockmax "
+            f"launches, planes form)")
 
-    plan, res = main_path(eng, queries, [(entry, blockmax.blockmax_rows),
-                                         (None, block_decode.optpfor_decode),
-                                         (None, block_decode.interp_decode)],
-                          "block_optpfor and_skip", prune=True, before=build)
+    plan, res = main_path(eng, queries, [(entry, blockmax.blockmax_rows)]
+                          + [(None, w) for w in decode_wrappers],
+                          f"{tag} and_skip", prune=True, before=build)
     kept, full = dir_blocks(plan), dir_blocks(exhaustive_plan)
-    log(f"and_skip: {len(plan['plans'])} parts; directory entries kept {kept} of the exhaustive "
-        f"plan's {full} ({kept / max(full, 1):.4f}); decode groups "
+    log(f"{tag} and_skip: {len(plan['plans'])} parts; directory entries kept {kept} of the "
+        f"exhaustive plan's {full} ({kept / max(full, 1):.4f}); decode groups "
         f"{sum(len(p['groups']) + len(p['groups_f']) for p in plan['plans'])}")
 
     # the full log: pruned against exhaustive, query by query
     got = [eng._topk_list(r[3]) for r in res]
     exp = [eng._topk_list(r[3]) for r in exhaustive_res]
     bad = topk_mismatches(got, exp)
-    log(f"and_skip: full-log identity over {len(queries)} queries: {len(bad)} mismatches against "
-        f"the exhaustive ranked_and (equal lengths, rtol {RTOL}); {sum(map(len, got))} results")
+    log(f"{tag} and_skip: full-log identity over {len(queries)} queries: {len(bad)} mismatches "
+        f"against the exhaustive ranked_and (equal lengths, rtol {RTOL}); {sum(map(len, got))} "
+        f"results")
     if bad:
-        raise AssertionError(f"and_skip differs from the exhaustive ranked_and on queries "
+        raise AssertionError(f"{tag}: and_skip differs from the exhaustive ranked_and on queries "
                              f"{bad[:10]}")
 
     # the decode pass on a second engine: byte-equal tables
-    dec = start_engine(index, wdata)
-    n0 = blockmax.blockmax_rows.launches
-    t0 = time.perf_counter()
-    dec._ensure_blockmax()
-    torch.cuda.synchronize()
-    log(f"and_skip: _ensure_blockmax (every tile decoded, rows form) on a second engine "
-        f"{time.perf_counter() - t0:.2f} s ({blockmax.blockmax_rows.launches - n0} blockmax "
-        f"launches, norm cache included)")
-    for name in BLOCKMAX_FIELDS:
-        a, b = np.asarray(getattr(dec, name)), np.asarray(getattr(eng, name))
-        if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a, b):
-            raise AssertionError(f"{name}: the decode pass and build_blockmax differ")
-    log(f"and_skip: all {len(BLOCKMAX_FIELDS)} pruning tables byte-equal between the decode pass "
-        f"and build_blockmax")
+    dec = None
+    if second_engine:
+        dec = start_engine(index, wdata)
+        n0 = blockmax.blockmax_rows.launches
+        t0 = time.perf_counter()
+        dec._ensure_blockmax()
+        torch.cuda.synchronize()
+        log(f"{tag} and_skip: _ensure_blockmax (every tile decoded, rows form) on a second "
+            f"engine {time.perf_counter() - t0:.2f} s ({blockmax.blockmax_rows.launches - n0} "
+            f"blockmax launches, norm cache included)")
+        for name in BLOCKMAX_FIELDS:
+            a, b = np.asarray(getattr(dec, name)), np.asarray(getattr(eng, name))
+            if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a, b):
+                raise AssertionError(f"{tag} {name}: the decode pass and build_blockmax differ")
+        log(f"{tag} and_skip: all {len(BLOCKMAX_FIELDS)} pruning tables byte-equal between the "
+            f"decode pass and build_blockmax")
 
     # OR pruning against the exhaustive ranked_or
     qs = queries[:OR_PRUNE_QUERIES]
@@ -912,8 +989,8 @@ def and_skip_path(eng, index, coll, wdata, queries, exhaustive_plan, exhaustive_
     for op in ("wand", "maxscore"):
         bad = topk_mismatches(getattr(eng, op)(qs, k=10), exact)
         if bad:
-            raise AssertionError(f"{op} differs from ranked_or on queries {bad[:10]}")
-    log(f"and_skip: wand and maxscore equal ranked_or on {len(qs)} queries "
+            raise AssertionError(f"{tag}: {op} differs from ranked_or on queries {bad[:10]}")
+    log(f"{tag} and_skip: wand and maxscore equal ranked_or on {len(qs)} queries "
         f"({time.perf_counter() - t0:.1f} s)")
     return dec, entry
 
@@ -983,6 +1060,31 @@ def opt_prune_phase(eng, queries):
 
 
 
+def block_path(index, wdata, queries, entries, tag):
+    """A split-mode main path: the engine, the block kernel phase over
+    every tile (each kernel bit-equal to its plain version in every mode;
+    kernels not yet in `entries` timed, and their JSON entries added
+    there), the 35k-query exhaustive slice (launch counts set to 0 just
+    before it; an entry takes its kernel's count from the first path that
+    times it), the part phase and the 300-query oracle. Returns the
+    engine, the plan, the last pass's results and the decode wrappers the
+    path launched."""
+    from ds2i_torch.ops import block_decode
+
+    eng = start_engine(index, wdata)
+    new, code_words = block_kernel_phase(eng, index, tag, timed=set(block_decode.WRAPPERS)
+                                         - {e["name"].split("_")[0] for e in entries})
+    entries += new
+    part = eng.all_tiles_part()
+    wrappers = [w for k, w in block_decode.WRAPPERS.items()
+                if any(part.layout.launch(k, d, eng.device).n_cta for d in (True, False))]
+    entry_of = {e["name"]: e for e in new}
+    plan, res = main_path(eng, queries, [(entry_of.get(w.__name__), w) for w in wrappers], tag)
+    part_kernel_phase(eng, plan, code_words, tag)
+    oracle_phase(eng, index, wdata, queries, ORACLE_QUERIES, tag)
+    return eng, plan, res, wrappers
+
+
 def main():
     import torch
 
@@ -990,6 +1092,7 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     log(smi.stdout.strip())
@@ -1017,18 +1120,15 @@ def main():
     opt_prune_phase(eng, queries)
     del eng
 
-    # block_optpfor path: split mode
-    index = build_index(coll, "block_optpfor")
-    eng = start_engine(index, wdata)
-    block_entries, code_words = block_kernel_phase(eng, index)
-    plan, res = main_path(eng, queries,
-                          [(e, getattr(block_decode, e["name"])) for e in block_entries],
-                          "block_optpfor")
-    part_kernel_phase(eng, plan, code_words)
-    oracle_phase(eng, index, wdata, queries, ORACLE_QUERIES, "block_optpfor")
-
-    # block_optpfor and_skip: bench.py's default path
-    dec, bm_entry = and_skip_path(eng, index, coll, wdata, queries, plan, res)
+    # block_optpfor path: split mode, then and_skip, bench.py's default path
+    block_entries = []
+    opt_index = build_index(coll, "block_optpfor")
+    eng, plan, res, wrappers = block_path(opt_index, wdata, queries, block_entries,
+                                          "block_optpfor")
+    bm_entry = {"name": "blockmax", "route": "cuda", "source": "ds2i_torch/csrc/blockmax.cu",
+                "replaces": "ds2i_tpu/engine/resident.py:358"}
+    dec, _ = and_skip_path(eng, opt_index, coll, wdata, queries, plan, res, "block_optpfor",
+                           wrappers, entry=bm_entry)
     blockmax_phase(eng, dec, coll, bm_entry)
     del eng, dec, plan, res
 
@@ -1041,7 +1141,26 @@ def main():
         raise AssertionError("the block_interpolative run never launched the CUDA interp_decode")
     del eng
 
-    print(json.dumps({"kernels": [pair_entry, *block_entries, bm_entry]}))
+    # block_varint, block_qmx and block_mixed (rebuilt from block_optpfor)
+    for name in ("block_varint", "block_qmx", "block_mixed"):
+        index = build_mixed_index(opt_index) if name == "block_mixed" else build_index(coll, name)
+        eng, plan, res, wrappers = block_path(index, wdata, queries, block_entries, name)
+        kinds = {st[0] for st in eng.group_statics_d + eng.group_statics_f}
+        log(f"{name}: group kinds {sorted(kinds)}")
+        if name == "block_mixed" and not {"optp", "var", "interp"} <= kinds:
+            raise AssertionError(f"block_mixed lacks OptPFor blocks with exceptions, Varint-G8IU "
+                                 f"or interpolative blocks: {sorted(kinds)}")
+        and_skip_path(eng, index, coll, wdata, queries, plan, res, name, wrappers,
+                      second_engine=name != "block_varint")
+        del eng, plan, res
+        torch.cuda.empty_cache()
+
+    by_name = {e["name"]: e for e in block_entries}
+    order = ("optpfor_decode", "varint_decode", "qmx_decode", "interp_decode")
+    if sorted(by_name) != sorted(order):
+        raise AssertionError(f"block kernels timed: {sorted(by_name)}, expected {sorted(order)}")
+    log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [pair_entry, *(by_name[n] for n in order), bm_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

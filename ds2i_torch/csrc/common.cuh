@@ -39,14 +39,15 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // the part-level decode (csrc/pair_decode.cu, csrc/optpfor_decode.cu,
-// csrc/interp_decode.cu)
+// csrc/varint_decode.cu, csrc/qmx_decode.cu, csrc/interp_decode.cu)
 //
 // A launch covers every group of one kernel in one stream of a part (pair
 // mode: both streams of a part). Its CTA table holds one entry per CTA,
 // int32 [p1, p2, T, row0, nrows, blk0]: the group's statics (EF pair: W,
-// WL; OptPFor: b, E; interpolative: W, 0), the tile width T, the CTA's
-// first row in the part's row-to-tile map `gtile` (int64), its row count
-// (never straddling two groups) and the output block of its first row;
+// WL; OptPFor: b, E; Varint-G8IU: G, 0; QMX: NI, S; interpolative: W, 0),
+// the tile width T, the CTA's first row in the part's row-to-tile map
+// `gtile` (int64), its row count (never straddling two groups) and the
+// output block of its first row;
 // row r of the CTA writes blocks [blk0 + r * bpt, + bpt), bpt =
 // max(T / 32, 1), of 32 slots each.
 constexpr int kCtaFields = 6;
@@ -69,6 +70,59 @@ __device__ __forceinline__ float slot_weight(int mode, int doc, int num_docs, fl
   if (doc >= num_docs) return 0.0f;
   if (mode != kDocsBm25) return 1.0f;
   return __fdiv_rn(f, __fadd_rn(f, den));
+}
+
+// an inclusive warp scan of x (every lane of the warp takes part)
+__device__ __forceinline__ uint32_t warp_inclusive_scan(uint32_t x, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, x, d);
+    if (lane >= d) x += y;
+  }
+  return x;
+}
+
+// the tail of a full-block row, one warp a row (K1, K7, K8): lane l holds
+// v[it], the raw value of slot it * 32 + l (a gap for docs, freq - 1 for
+// freqs), and the warp writes the row's four 32-slot blocks from blk0 —
+//   freqs   v + 1, slots >= nvals 0;
+//   docs    *base - 1 + the inclusive prefix sum of v + 1 (a warp scan
+//           with a carry across the four blocks), slots >= nvals num_docs;
+//   weights (modes kDocsPresence, kDocsBm25) slot_weight, f read from the
+//           freqs-order blocks at blkperm of each block, den from block
+//           tile_gblk0[tile] + it of den_blocks.
+// uint32 arithmetic, wrapping as the JAX engine's int32 does.
+__device__ __forceinline__ void write_full_block_row(
+    const uint32_t (&v)[4], int lane, int mode, int num_docs, int nvals, const int* base,
+    long long blk0, long long tile, int* __restrict__ out, float* __restrict__ w_out,
+    const int* __restrict__ freq, const long long* __restrict__ blkperm,
+    const float* __restrict__ den_blocks, const long long* __restrict__ tile_gblk0) {
+  if (mode == kFreqs) {
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+      const int j = it * 32 + lane;
+      out[(blk0 + it) * 32 + lane] = j < nvals ? static_cast<int>(v[it] + 1u) : 0;
+    }
+    return;
+  }
+  const long long den_blk0 = mode == kDocsBm25 ? tile_gblk0[tile] : 0;
+  uint32_t carry = static_cast<uint32_t>(*base) - 1u;
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    const uint32_t t = warp_inclusive_scan(v[it] + 1u, lane) + carry;
+    carry = __shfl_sync(0xFFFFFFFFu, t, 31);
+    const int j = it * 32 + lane;
+    const int doc = j < nvals ? static_cast<int>(t) : num_docs;
+    out[(blk0 + it) * 32 + lane] = doc;
+    if (mode != kDocs) {
+      float fv = 0.0f, den = 0.0f;
+      if (mode == kDocsBm25) {
+        fv = __int2float_rn(freq[blkperm[blk0 + it] * 32 + lane]);
+        den = den_blocks[(den_blk0 + it) * 32 + lane];
+      }
+      w_out[(blk0 + it) * 32 + lane] = slot_weight(mode, doc, num_docs, fv, den);
+    }
+  }
 }
 
 }  // namespace ds2i

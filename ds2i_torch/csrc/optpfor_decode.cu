@@ -136,38 +136,8 @@ optpfor_part_kernel(const uint32_t* __restrict__ words, long long nw,
     for (int it = 0; it < kSteps; ++it) v[it] |= s_patch[warp][it * 32 + lane];
   }
 
-  if (mode == ds2i::kFreqs) {
-#pragma unroll
-    for (int it = 0; it < kSteps; ++it) {
-      const int j = it * 32 + lane;
-      out[(blk0 + it) * 32 + lane] = j < nvals ? static_cast<int>(v[it] + 1u) : 0;
-    }
-    return;
-  }
-  const long long den_blk0 = mode == ds2i::kDocsBm25 ? tile_gblk0[tile] : 0;
-  uint32_t carry = static_cast<uint32_t>(f[F_BASE]) - 1u;
-#pragma unroll
-  for (int it = 0; it < kSteps; ++it) {
-    uint32_t t = v[it] + 1u;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const uint32_t y = __shfl_up_sync(kFull, t, d);
-      if (lane >= d) t += y;
-    }
-    t += carry;
-    carry = __shfl_sync(kFull, t, 31);
-    const int j = it * 32 + lane;
-    const int doc = j < nvals ? static_cast<int>(t) : num_docs;
-    out[(blk0 + it) * 32 + lane] = doc;
-    if (mode != ds2i::kDocs) {
-      float fv = 0.0f, den = 0.0f;
-      if (mode == ds2i::kDocsBm25) {
-        fv = __int2float_rn(freq[blkperm[blk0 + it] * 32 + lane]);
-        den = den_blocks[(den_blk0 + it) * 32 + lane];
-      }
-      w_out[(blk0 + it) * 32 + lane] = ds2i::slot_weight(mode, doc, num_docs, fv, den);
-    }
-  }
+  ds2i::write_full_block_row(v, lane, mode, num_docs, nvals, f + F_BASE, blk0, tile, out, w_out,
+                             freq, blkperm, den_blocks, tile_gblk0);
 }
 
 }  // namespace

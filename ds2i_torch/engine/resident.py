@@ -2,8 +2,8 @@
 block-gather + row-sort join, with block-max pruning.
 
 Port of ds2i_tpu/engine/resident.py for EF-family indexes (ef, single,
-uniform, opt) in pair mode and for the block indexes block_optpfor and
-block_interpolative in split mode. Ops: and_counts, or_counts,
+uniform, opt) in pair mode and for the block indexes (block_optpfor,
+block_varint, block_interpolative, block_qmx, block_mixed) in split mode. Ops: and_counts, or_counts,
 ranked_or, ranked_and (exhaustive, or prune=True: intersection block
 skipping, bench.py's and_skip), wand and maxscore (block-max pruned top-k
 OR). Everything static lives on the device from engine init: the
@@ -19,7 +19,7 @@ Per part (one host plan each), on the device:
      tables: pair mode, one launch over every (W, WL, T) group of the
      part, both streams (ops.pair_decode.pair_decode_part); split mode,
      each stream in its own group-major order, one launch per kernel
-     (OptPFor, interpolative) and stream (ops.block_decode.
+     (OptPFor, Varint-G8IU, QMX, interpolative) and stream (ops.block_decode.
      split_decode_part): freqs first, then docs, whose launches also
      realign the freqs to the docs order (blkperm). Either way the docs
      launch writes the doc-term weights f/(f+den) from the init-time
@@ -54,8 +54,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..codecs.interpolative import InterpolativeBlock
-from ..codecs.optpfor import OptPForBlock
 from ..queries.bm25 import BM25
 from ..queries.parsing import query_freqs
 from ..utils.logging import logger
@@ -258,9 +256,8 @@ class TilesPart(NamedTuple):
 
 class ResidentEngine:
     """Resident-table engine over an EF-family index (pair mode) or a
-    block_optpfor / block_interpolative index (split mode); minimal
-    per-batch transfer, one decode group set per part, decode shared
-    across queries."""
+    block index of any codec (split mode); minimal per-batch transfer,
+    one decode group set per part, decode shared across queries."""
 
     MIN_L = 64
     # the largest k the pruning threshold tables support (per-list sorted
@@ -384,16 +381,13 @@ class ResidentEngine:
         return t, (index.docs_sequences.bits_bv.words, index.freqs_sequences.bits_bv.words)
 
     def _init_block(self, index):
-        """block_freq_index tiles (resident.py:_init_block): one tile per
-        128-int block, per-stream group statics ("opt", b, E, 128) or
-        ("interp", W, T), and ONE word stream for docs and freqs: the
-        index bytes, then the resident OptPFor exception patch pairs."""
-        if index.codec not in (OptPForBlock, InterpolativeBlock):
-            raise NotImplementedError(
-                f"ds2i_torch's ResidentEngine serves block_optpfor and "
-                f"block_interpolative; {index.codec.__name__} blocks wait for "
-                f"{block_decode.ITEM8}"
-            )
+        """block_freq_index tiles of any block codec (resident.py:
+        _init_block): one tile per 128-int block, per-stream group statics
+        ("opt", b, E, 128), ("var", G, 128), ("qmx", NI, S, 128) or
+        ("interp", W, T) (block_mixed picks OptPFor, Varint-G8IU or
+        interpolative per block and stream; partial blocks are always
+        interpolative), and ONE word stream for docs and freqs: the index
+        bytes, then the resident OptPFor exception patch pairs."""
         self.split = True
         t, slist_d, gid_d, slist_f, gid_f = build_block_tables(index)
         self._empty_statics = ("interp", 4, BLOCK)

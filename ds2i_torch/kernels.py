@@ -40,6 +40,12 @@ _PAIR_ARGS = _PART_ARGS[:12] + [
     _p, _p,  # den_blocks, tile_gblk0 (bm25 mode, else NULL)
     _p,  # cudaStream_t
 ]
+# K8 reads its lane table (ops/block_decode.py:qmx_lane_words), uploaded
+# once per device, through one more pointer before the stream
+_QMX_ARGS = _PART_ARGS[:-1] + [
+    _p,  # lane table, int32 (15 * 256 + 15,)
+    _p,  # cudaStream_t
+]
 _BLOCKMAX_ARGS = [
     _p, _p, _p,  # docs int32 (rows, 32), w or freqs f32 (rows, 32), norm_den f32 (planes form, else NULL)
     _ll, _i,  # rows, num_docs
@@ -50,6 +56,8 @@ _BLOCKMAX_ARGS = [
 ENTRY_POINTS = {
     "pair_decode": ("ds2i_pair_decode_part", _PAIR_ARGS),
     "optpfor_decode": ("ds2i_optpfor_decode_part", _PART_ARGS),
+    "varint_decode": ("ds2i_varint_decode_part", _PART_ARGS),
+    "qmx_decode": ("ds2i_qmx_decode_part", _QMX_ARGS),
     "interp_decode": ("ds2i_interp_decode_part", _PART_ARGS),
     "blockmax": ("ds2i_blockmax_rows", _BLOCKMAX_ARGS),
 }

@@ -1,19 +1,25 @@
-"""Block-codec stream decode: OptPFor full blocks and interpolative tails.
+"""Block-codec stream decode: OptPFor, Varint-G8IU and QMX full blocks,
+interpolative full blocks and tails.
 
-Port of the two jnp device ops that decode block indexes in the JAX
+Port of the four jnp device ops that decode block indexes in the JAX
 engine's split mode:
 
   K1  ds2i_tpu/ops/optpfor_device.py:optpfor_decode, the b_static path
       with resident exception patches (ex_patch=True) or no exceptions
       (E = 0), plus the assembly of engine/resident.py:_decode_block_stream
       (docs base-1+cumsum(gap+1), freqs raw+1) -> csrc/optpfor_decode.cu
+  K7  ds2i_tpu/ops/varint_device.py:varint_decode, plus the same assembly
+      -> csrc/varint_decode.cu
+  K8  ds2i_tpu/ops/qmx_device.py:qmx_decode, plus the same assembly
+      -> csrc/qmx_decode.cu
   K2  ds2i_tpu/ops/interp_device.py:interp_decode, the stack-machine
-      DFS, plus the same assembly (docs base+cum+j, freqs cum diff + 1)
+      DFS, plus its assembly (docs base+cum+j, freqs cum diff + 1)
       -> csrc/interp_decode.cu
 
-`optpfor_decode_torch` and `interp_decode_torch` transcribe the JAX ops'
-raw outputs; `block_stream_torch` adds the assembly and the pad mask
-(docs slots j >= n_vals -> num_docs, freqs -> 0) for one group.
+`optpfor_decode_torch`, `varint_decode_torch`, `qmx_decode_torch` and
+`interp_decode_torch` transcribe the JAX ops' raw outputs;
+`block_stream_torch` adds the assembly and the pad mask (docs slots j >=
+n_vals -> num_docs, freqs -> 0) for one group.
 
 A part decodes in one launch per kernel and stream (freqs first, only
 for BM25 weights; then docs), over every group of the part: the host
@@ -24,8 +30,9 @@ and the weight w = f / (f + den) included (the JAX engine's
 resident.py:_decode_weight_blocks split branch and _decode_part's pad).
 `split_decode_part_torch` is that whole decode in plain PyTorch, from
 the per-group block_stream_torch; `decode_launch_torch` is what one
-launch writes. The wrappers `optpfor_decode` and `interp_decode` (one
-launch each, counted in `.launches`) and `split_decode_part` take those
+launch writes. The wrappers `optpfor_decode`, `varint_decode`,
+`qmx_decode` and `interp_decode` (one launch each, counted in
+`.launches`) and `split_decode_part` take those
 plain versions for CPU tensors only; on CUDA tensors they launch the
 kernels or raise. PartLayout and cta_table also lay out pair mode's
 one launch a part (ops/pair_decode.py).
@@ -40,19 +47,17 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..codecs.qmx import ADV_OF_TYPE, INTS_OF_TYPE, LANE_TABLE
 from ..engine.block_tiles import (
-    BF_BOFF, BF_EX_BASE, BF_EX_W0, BF_NEX, BF_W0,
-    _E_BUCKETS, _NC_BUCKETS, _WIN_BUCKETS,
+    BF_B, BF_BOFF, BF_EX_BASE, BF_EX_BOFF, BF_EX_W0, BF_NEX, BF_W0,
+    _E_BUCKETS, _G_BUCKETS, _NC_BUCKETS, _NW_BUCKETS, _S_BUCKETS, _WIN_BUCKETS,
 )
 from ..engine.tiles import F_BASE, F_NVALS, N_FIELDS, TILE
 from . import pair_decode  # its names are read at call time: engine imports this module
 
 _M32 = 0xFFFFFFFF
 DEPTH = 8  # interp_device.DEPTH: DFS stack depth for <= 128 values
-ITEM8 = (
-    "ROADMAP queue 1 item 8 (the block_varint, block_qmx and block_mixed "
-    "decode kernels)"
-)
+QMX_TYPES = len(INTS_OF_TYPE)  # 15 width classes
 
 
 def _i32(x):
@@ -97,6 +102,111 @@ def optpfor_decode_torch(words, slot_w0, slot_boff, n_ex, ex_base, WS, E, b_stat
         hit = (j[:, :, None] == pos[:, None, :]) & evalid[:, None, :]
         out = out | (torch.where(hit, add[:, None, :], 0).sum(dim=2) & _M32)
     return out.int()
+
+
+def varint_decode_torch(words, w0, boff, ngroups, G, T=TILE):
+    """varint_decode in plain PyTorch: (R, T) int32 raw values of full
+    Varint-G8IU blocks (gaps for docs, freq-1 for freqs). Group g < G
+    (and < ngroups) is one descriptor byte, whose bit i marks data byte i
+    as an integer's last, and 8 data bytes, read from the (9G+7)//4 + 2
+    words at w0 shifted down by boff bits. A byte adds data << 8*wpos
+    (wpos: its place in its integer; 0 where 8*wpos >= 32, as XLA shifts)
+    to output out_idx (the end markers before it) when its integer ends
+    inside its group; slots no integer reaches stay 0."""
+    R = w0.shape[0]
+    dev = words.device
+    WB = (G * 9 + 7) // 4 + 2
+    win = pair_decode._gather_words(
+        words, w0.long()[:, None] + torch.arange(WB, device=dev, dtype=torch.int64)[None, :])
+    s = boff.long()[:, None]
+    nxt = torch.cat([win[:, 1:], torch.zeros((R, 1), dtype=torch.int64, device=dev)], dim=1)
+    aligned = (win >> s) | torch.where(s > 0, (nxt << (32 - s)) & _M32, 0)
+    k = torch.arange(9 * G, device=dev, dtype=torch.int64)
+    byte = ((aligned[:, k >> 2] >> (8 * (k & 3))[None, :]) & 0xFF).reshape(R, G, 9)
+    desc, data = byte[:, :, 0], byte[:, :, 1:].reshape(R, 8 * G)
+    gvalid = torch.arange(G, device=dev)[None, :] < ngroups.long()[:, None]
+    bit = torch.arange(8, device=dev, dtype=torch.int64)
+    ends = (((desc[:, :, None] >> bit) & 1) > 0) & gvalid[:, :, None]  # (R, G, 8)
+    flat_ends = ends.reshape(R, 8 * G).long()
+    cume = torch.cumsum(flat_ends, dim=1)
+    out_idx = cume - flat_ends
+    # byte place within its integer: bytes since the group's last end
+    run = torch.zeros((R, G), dtype=torch.int64, device=dev)
+    cols = []
+    for i in range(8):
+        cols.append(run)
+        run = torch.where(ends[:, :, i], 0, run + 1)
+    wpos = torch.stack(cols, dim=2).reshape(R, 8 * G)
+    gend = cume.reshape(R, G, 8)[:, :, 7:].expand(R, G, 8).reshape(R, 8 * G)
+    ok = (out_idx < gend) & (out_idx < T) & gvalid.repeat_interleave(8, dim=1)
+    contrib = torch.where(ok & (wpos < 4), data << (8 * wpos.clamp(max=3)), 0)
+    out = torch.zeros((R, T + 1), dtype=torch.int64, device=dev)
+    out.scatter_add_(1, torch.where(ok, out_idx, T), contrib)
+    return _i32(out[:, :T] & _M32).int()
+
+
+_QMX_INTS = torch.tensor(INTS_OF_TYPE, dtype=torch.int64)
+_QMX_ADV = torch.tensor(ADV_OF_TYPE, dtype=torch.int64)
+_QMX_TAB = torch.from_numpy(LANE_TABLE.astype(np.int64))  # (15, 256, 4)
+
+
+def _extract(words, w_base, bitoff, width):
+    """qmx_device._extract: `width` bits at bit `bitoff` past word w_base
+    (indices clamped to the stream), as uint32 values in int64; all 32
+    bits for a width of 32 or more."""
+    w0i = w_base + (bitoff >> 5)
+    s = bitoff & 31
+    lo = pair_decode._gather_words(words, w0i)
+    hi = pair_decode._gather_words(words, w0i + 1)
+    x = (lo >> s) | torch.where(s > 0, (hi << (32 - s)) & _M32, 0)
+    return x & torch.where(width >= 32, _M32, (1 << width.clamp(0, 31)) - 1)
+
+
+def qmx_decode_torch(words, pay_w0, pay_boff, ninst, sel_w0, sel_b, nsel, NI, S, T=TILE):
+    """qmx_decode in plain PyTorch: (R, T) int32 raw values of full QMX
+    blocks in the reference byte format. The first min(nsel, S) selector
+    bytes, walking back from byte sel_b of word sel_w0, give (type, batch)
+    runs; instance i < NI takes the type of the run covering it, and (for
+    i < ninst) INTS_OF_TYPE outputs and ADV_OF_TYPE payload bytes. Slot v
+    reads its instance's LANE_TABLE entry from the payload at (pay_w0,
+    pay_boff); type 0 gives 1. A type index past the table clamps to its
+    last class, as XLA's gather does."""
+    R = pay_w0.shape[0]
+    dev = words.device
+    ints_of, adv_of, tab = _QMX_INTS.to(dev), _QMX_ADV.to(dev), _QMX_TAB.to(dev)
+    bk = sel_b.long()[:, None] - torch.arange(S, device=dev, dtype=torch.int64)[None, :]
+    wsel = pair_decode._gather_words(words, sel_w0.long()[:, None] + (bk >> 2))
+    sel = (wsel >> ((bk & 3) * 8)) & 0xFF
+    svalid = torch.arange(S, device=dev)[None, :] < nsel.long()[:, None]
+    t_s = torch.where(svalid, sel >> 4, 0)
+    batch_s = torch.where(svalid, 16 - (sel & 15), 0)
+
+    cum = torch.cumsum(batch_s, dim=1)
+    ii = torch.arange(NI, device=dev, dtype=torch.int64)[None, :, None]
+    cover = (ii < cum[:, None, :]) & (ii >= (cum - batch_s)[:, None, :])
+    t_i = torch.where(cover, t_s[:, None, :], 0).sum(dim=2)  # (R, NI)
+    ivalid = torch.arange(NI, device=dev)[None, :] < ninst.long()[:, None]
+    tc = t_i.clamp(0, QMX_TYPES - 1)
+    ints_i = torch.where(ivalid, ints_of[tc], 0)
+    adv_i = torch.where(ivalid, adv_of[tc], 0)
+    out_base = torch.cumsum(ints_i, dim=1) - ints_i
+    pay_byte = torch.cumsum(adv_i, dim=1) - adv_i
+
+    v = torch.arange(T, device=dev, dtype=torch.int64)[None, :]
+    le = (out_base[:, None, :] <= v[:, :, None]) & ivalid[:, None, :]  # (R, T, NI)
+    inst = (le.sum(dim=2) - 1).clamp(0, NI - 1)
+    t_v = t_i.gather(1, inst)
+    b_v = out_base.gather(1, inst)
+    p_v = pay_byte.gather(1, inst)
+    j = (v - b_v).clamp(0, 255)
+    lane = tab[t_v.clamp(0, QMX_TYPES - 1), j]  # (R, T, 4)
+    ba, wa, bb, wb = lane.unbind(dim=2)
+    base_bits = pay_boff.long()[:, None] + p_v * 8
+    wbase = pay_w0.long()[:, None]
+    a = _extract(words, wbase, base_bits + ba, wa)
+    b = torch.where(wb > 0, _extract(words, wbase, base_bits + bb, wb), 0)
+    val = a | ((b << wa.clamp(0, 31)) & _M32)
+    return torch.where(t_v == 0, 1, _i32(val)).int()
 
 
 def _lane(arr, idx):
@@ -198,24 +308,32 @@ def interp_decode_torch(win, rel0, n, sums, NC, W, steps):
 def block_stream_torch(words, fld, st, num_docs, is_docs):
     """One stream of one block group in plain PyTorch: (R, T) int32 docids
     (is_docs; pads -> num_docs) or freqs (pads -> 0). st is the group's
-    statics: ("opt", b, 0, 128), ("optp", b, E, 128) or ("interp", W, T)
-    (resident.py:_decode_block_stream and the pad mask of
-    _decode_doc_group_blocks / _decode_freq_group_blocks)."""
+    statics: ("opt", b, 0, 128), ("optp", b, E, 128), ("var", G, 128),
+    ("qmx", NI, S, 128) or ("interp", W, T) (resident.py:
+    _decode_block_stream and the pad mask of _decode_doc_group_blocks /
+    _decode_freq_group_blocks)."""
     kind, T = st[0], st[-1]
     f = fld.long()
     dev = words.device
     j = torch.arange(T, device=dev, dtype=torch.int64)[None, :]
     col = lambda c: f[:, c, None]  # noqa: E731
-    if kind in ("opt", "optp"):
-        b, E = st[1], st[2]
-        if kind == "opt" and E > 0:
-            raise NotImplementedError(
-                "the in-pass Simple16 exception decode is not ported; block "
-                "indexes decode exceptions from resident patch words (\"optp\")")
-        ws = (31 + T * min(b, 32)) // 32 + 1
-        raw = optpfor_decode_torch(
-            words, f[:, BF_W0], f[:, BF_BOFF], f[:, BF_NEX], f[:, BF_EX_BASE],
-            ws, E, b, T).long()
+    if kind in ("opt", "optp", "var", "qmx"):
+        if kind == "var":
+            raw = varint_decode_torch(words, f[:, BF_W0], f[:, BF_BOFF], f[:, BF_B], st[1], T)
+        elif kind == "qmx":
+            raw = qmx_decode_torch(words, f[:, BF_W0], f[:, BF_BOFF], f[:, BF_B], f[:, BF_EX_W0],
+                                   f[:, BF_EX_BOFF], f[:, BF_NEX], st[1], st[2], T)
+        else:
+            b, E = st[1], st[2]
+            if kind == "opt" and E > 0:
+                raise NotImplementedError(
+                    "the in-pass Simple16 exception decode is not ported; block "
+                    "indexes decode exceptions from resident patch words (\"optp\")")
+            ws = (31 + T * min(b, 32)) // 32 + 1
+            raw = optpfor_decode_torch(
+                words, f[:, BF_W0], f[:, BF_BOFF], f[:, BF_NEX], f[:, BF_EX_BASE],
+                ws, E, b, T)
+        raw = raw.long()
         val = col(F_BASE) - 1 + torch.cumsum(raw + 1, dim=1) if is_docs else raw + 1
     elif kind == "interp":
         W = st[1]
@@ -229,7 +347,7 @@ def block_stream_torch(words, fld, st, num_docs, is_docs):
             prev = torch.cat([torch.zeros_like(cum[:, :1]), cum[:, :-1]], dim=1)
             val = cum - prev + 1
     else:
-        raise NotImplementedError(f"block stream kind {kind!r} waits for {ITEM8}")
+        raise ValueError(f"unknown block stream kind {kind!r}")
     valid = j < col(F_NVALS)
     return torch.where(valid, _i32(val), num_docs if is_docs else 0).int()
 
@@ -246,10 +364,13 @@ BLOCK = 32
 PAIR_ROWS = 16  # rows per pair_decode CTA, two a warp (csrc/pair_decode.cu kRows)
 K1_ROWS = 8  # rows per K1 CTA, one warp each (csrc/optpfor_decode.cu kWarps)
 K2_ROWS = 32  # rows per K2 CTA, one thread each (csrc/interp_decode.cu kRows)
-ROWS_PER_CTA = {"pair": PAIR_ROWS, "optpfor": K1_ROWS, "interp": K2_ROWS}
+K7_ROWS = 8  # rows per K7 CTA, one warp each (csrc/varint_decode.cu kWarps)
+K8_ROWS = 8  # rows per K8 CTA, one warp each (csrc/qmx_decode.cu kWarps)
+ROWS_PER_CTA = {"pair": PAIR_ROWS, "optpfor": K1_ROWS, "varint": K7_ROWS, "qmx": K8_ROWS,
+                "interp": K2_ROWS}
 CTA_FIELDS = 6  # [p1, p2, T, row0, nrows, blk0]
 MODES = {"freqs": 0, "docs": 1, "presence": 2, "bm25": 3}  # csrc/common.cuh Mode
-KERNELS = ("optpfor", "interp")  # the split-mode kernels, in launch order
+KERNELS = ("optpfor", "varint", "qmx", "interp")  # the split-mode kernels, in launch order
 PAIR_MAX_W = 1024  # W and WL of a pair group (csrc/pair_decode.cu kMaxW)
 
 
@@ -270,12 +391,21 @@ def _kernel_of(st):
             raise ValueError(f"optpfor_decode takes (\"opt\"|\"optp\", b in 0..32, E in "
                              f"{_E_BUCKETS}, 128), got {st}")
         return "optpfor"
+    if st[0] == "var":
+        if len(st) != 3 or st[-1] != TILE or st[1] not in _G_BUCKETS:
+            raise ValueError(f"varint_decode takes (\"var\", G in {_G_BUCKETS}, 128), got {st}")
+        return "varint"
+    if st[0] == "qmx":
+        if len(st) != 4 or st[-1] != TILE or st[1] not in _NW_BUCKETS or st[2] not in _S_BUCKETS:
+            raise ValueError(f"qmx_decode takes (\"qmx\", NI in {_NW_BUCKETS}, S in "
+                             f"{_S_BUCKETS}, 128), got {st}")
+        return "qmx"
     if st[0] == "interp":
         if st[1] not in _WIN_BUCKETS or st[2] not in _NC_BUCKETS:
             raise ValueError(f"interp_decode takes (\"interp\", W in {_WIN_BUCKETS}, T in "
                              f"{_NC_BUCKETS}), got {st}")
         return "interp"
-    raise NotImplementedError(f"block stream kind {st[0]!r} waits for {ITEM8}")
+    raise ValueError(f"unknown group statics {st}")
 
 
 def cta_table(groups, kernel):
@@ -291,7 +421,9 @@ def cta_table(groups, kernel):
         T = st[-1]
         bpt = max(T // BLOCK, 1)
         if _kernel_of(st) == kernel:
-            p1, p2 = (st[1], 0) if kernel == "interp" else (st[1], st[2])
+            # EF pair (W, WL), OptPFor (b, E), QMX (NI, S); Varint-G8IU (G, 0),
+            # interpolative (W, 0)
+            p1, p2 = (st[1], st[2]) if st[0] in ("ef", "opt", "optp", "qmx") else (st[1], 0)
             ents += [(p1, p2, T, off + r0, min(rows_per, R - r0), blk + r0 * bpt)
                      for r0 in range(0, R, rows_per)]
         blk += R * bpt
@@ -309,7 +441,7 @@ class Launch:
     """One kernel's launch over one stream of a part: its CTA table on the
     host, its copy on one device, and the launch sizes (max_w: K2's
     largest window, pair_decode's largest W + WL + 1 staged words and T
-    slots of a stream)."""
+    slots of a stream; 0 and 128 for the full-block kernels)."""
 
     def __init__(self, kernel, host, dev):
         self.kernel, self.host, self.dev = kernel, host, dev
@@ -318,7 +450,7 @@ class Launch:
         # the blocks the launch writes end before end_blk
         ends = h[:, 5] + h[:, 4] * np.maximum(h[:, 2] // BLOCK, 1)
         self.end_blk = int(ends.max()) if self.n_cta else 0
-        if kernel == "optpfor":
+        if kernel in ("optpfor", "varint", "qmx"):  # full 128-slot blocks
             self.max_w, self.max_t = 0, TILE
         elif kernel == "pair":
             self.max_w = int((h[:, 0] + h[:, 1] + 1 + h[:, 2]).max()) if self.n_cta else 0
@@ -445,6 +577,10 @@ def decode_launch_torch(launch, words, fld, gtile, mode, num_docs, out, w=None, 
             j += 1
         if launch.kernel == "optpfor":
             st = ("optp" if p2 > 0 else "opt", p1, p2, T)
+        elif launch.kernel == "varint":
+            st = ("var", p1, T)
+        elif launch.kernel == "qmx":
+            st = ("qmx", p1, p2, T)
         else:
             st = ("interp", p1, T)
         ids = gtile[row0:row0 + n]
@@ -511,12 +647,13 @@ def _decode_launch(wrapper, launch, words, fld, gtile, mode, num_docs, out, w, f
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     name = wrapper.__name__
     lib = kernels.lib(name)
+    extra = (qmx_lane_table(words.device).data_ptr(),) if name == "qmx_decode" else ()
     rc = getattr(lib, kernels.ENTRY_POINTS[name][0])(
         words.data_ptr(), words.numel(), fld.data_ptr(), gtile.data_ptr(), launch.dev.data_ptr(),
         launch.n_cta, launch.max_w, launch.max_t, MODES[mode], int(num_docs), out.data_ptr(),
         ptr(w), ptr(freq) if bm25 else None, ptr(blkperm) if bm25 else None,
         ptr(den_blocks) if bm25 else None, ptr(tile_gblk0) if bm25 else None,
-        torch.cuda.current_stream(words.device).cuda_stream,
+        *extra, torch.cuda.current_stream(words.device).cuda_stream,
     )
     kernels.check(lib, rc, f"{name} launch")
     wrapper.launches += 1
@@ -534,6 +671,50 @@ def optpfor_decode(launch, words, fld, gtile, mode, num_docs, out, w=None, freq=
                           freq, blkperm, den_blocks, tile_gblk0)
 
 
+def varint_decode(launch, words, fld, gtile, mode, num_docs, out, w=None, freq=None,
+                  blkperm=None, den_blocks=None, tile_gblk0=None):
+    """K7 over one stream of a part: every ("var", G, 128) group that
+    `launch` lists, as optpfor_decode; CUDA tensors launch
+    csrc/varint_decode.cu once (counted in varint_decode.launches) or
+    raise."""
+    return _decode_launch(varint_decode, launch, words, fld, gtile, mode, num_docs, out, w,
+                          freq, blkperm, den_blocks, tile_gblk0)
+
+
+def qmx_decode(launch, words, fld, gtile, mode, num_docs, out, w=None, freq=None,
+               blkperm=None, den_blocks=None, tile_gblk0=None):
+    """K8 over one stream of a part: every ("qmx", NI, S, 128) group that
+    `launch` lists, as optpfor_decode; CUDA tensors launch
+    csrc/qmx_decode.cu once (counted in qmx_decode.launches), with the
+    device's lane table (qmx_lane_table), or raise."""
+    return _decode_launch(qmx_decode, launch, words, fld, gtile, mode, num_docs, out, w,
+                          freq, blkperm, den_blocks, tile_gblk0)
+
+
+def qmx_lane_words():
+    """csrc/qmx_decode.cu's table, from codecs/qmx.py, as int32 bits: word
+    256 t + j packs LANE_TABLE[t, j] = (bitoff_a, width_a, bitoff_b,
+    width_b) one byte each, low byte first; word 256 * 15 + t packs
+    INTS_OF_TYPE[t] | ADV_OF_TYPE[t] << 16."""
+    tab = LANE_TABLE.astype(np.uint32)
+    if tab.max() > 255 or max(INTS_OF_TYPE) > 0xFFFF:
+        raise ValueError("the QMX lane table's fields do not fit their bytes")
+    lane = tab[..., 0] | tab[..., 1] << 8 | tab[..., 2] << 16 | tab[..., 3] << 24
+    meta = np.asarray(INTS_OF_TYPE, np.uint32) | np.asarray(ADV_OF_TYPE, np.uint32) << 16
+    return np.concatenate([lane.reshape(-1), meta]).view(np.int32)
+
+
+_QMX_LANES = {}
+
+
+def qmx_lane_table(device):
+    """qmx_lane_words on `device`, uploaded once per device."""
+    key = str(device)
+    if key not in _QMX_LANES:
+        _QMX_LANES[key] = torch.from_numpy(qmx_lane_words()).to(device)
+    return _QMX_LANES[key]
+
+
 def interp_decode(launch, words, fld, gtile, mode, num_docs, out, w=None, freq=None,
                   blkperm=None, den_blocks=None, tile_gblk0=None):
     """K2 over one stream of a part: every ("interp", W, T) group that
@@ -545,15 +726,19 @@ def interp_decode(launch, words, fld, gtile, mode, num_docs, out, w=None, freq=N
 
 
 optpfor_decode.launches = 0
+varint_decode.launches = 0
+qmx_decode.launches = 0
 interp_decode.launches = 0
-WRAPPERS = {"optpfor": optpfor_decode, "interp": interp_decode}
+WRAPPERS = {"optpfor": optpfor_decode, "varint": varint_decode, "qmx": qmx_decode,
+            "interp": interp_decode}
 
 
 def split_decode_part(words, tiles_docs, tiles_freqs, gtile_ids, gtile_f, blkperm, layout,
                       num_docs, weights, den_blocks=None, tile_gblk0=None, out_rows=None):
     """split_decode_part_torch's contract. CPU tensors take that plain
-    version; CUDA tensors run at most one K1 and one K2 launch per stream
-    (freqs first, only for "bm25"; then docs, with the weights), each
+    version; CUDA tensors run at most one launch of each kernel (K1, K7,
+    K8, K2) per stream (freqs first, only for "bm25"; then docs, with the
+    weights), each
     writing straight into the part's tensors, or raise."""
     if words.device.type == "cpu":
         return split_decode_part_torch(words, tiles_docs, tiles_freqs, gtile_ids, gtile_f,

@@ -18,12 +18,8 @@ from ds2i_tpu.index.hybrid import rebuild_mixed
 from ds2i_tpu.io import generate_collection
 from ds2i_tpu.queries import and_query, or_query, ranked_and_query, ranked_or_query, read_queries
 
-from ds2i_torch.codecs.mixed import MixedBlock as PortMixedBlock
 from ds2i_torch.engine import ResidentEngine, resident_state_from_arrays
 from ds2i_torch.engine.tiles import F_NVALS
-from ds2i_torch.host import BinaryFreqCollection as PortCollection
-from ds2i_torch.host import GlobalParameters as PortParams
-from ds2i_torch.host import make_index_type as port_index_type
 from ds2i_torch.ops.block_decode import block_stream_torch
 
 from test_torch_host_copy import assert_same_walk, build_index, build_wdata
@@ -72,12 +68,10 @@ def queries(coll):
     return read_queries(coll + ".queries")[:NQ]
 
 
-@pytest.mark.parametrize("name", BLOCK_TYPES)
-def test_tables_and_words_match_jax(setup, name):
+def check_tables_and_words(port, ref):
     """Per-stream statics (exception groups remapped to "optp"), gids, the
     field tables with BF_EX_BASE filled, and the one resident word stream
     (index bytes + patch pairs), uploaded once."""
-    _, _, port, ref, _ = setup[name]
     assert port.split and ref.split
     assert port.group_statics_d == ref.group_statics_d
     assert port.group_statics_f == ref.group_statics_f
@@ -89,16 +83,22 @@ def test_tables_and_words_match_jax(setup, name):
     np.testing.assert_array_equal(s.docs_words.numpy().view(np.uint32), np.asarray(ref.docs_words))
     assert s.freqs_words is s.docs_words
     assert s.nbytes() == sum(t.numel() * t.element_size() for t in (
-        s.docs_words, s.tiles_docs, s.tiles_freqs, s.norm_den))
-    if name == "block_optpfor":
-        assert any(st[0] == "optp" for st in port.group_statics_d + port.group_statics_f)
+        s.docs_words, s.tiles_docs, s.tiles_freqs, s.norm_den, s.den_blocks, s.tile_gblk0)
+        if t is not None)
+    return {st[0] for st in port.group_statics_d + port.group_statics_f}
 
 
 @pytest.mark.parametrize("name", BLOCK_TYPES)
-def test_every_tile_decodes_as_the_host(setup, name):
+def test_tables_and_words_match_jax(setup, name):
+    _, _, port, ref, _ = setup[name]
+    kinds = check_tables_and_words(port, ref)
+    if name == "block_optpfor":
+        assert "optp" in kinds
+
+
+def check_every_tile_decodes_as_the_host(index, port):
     """block_stream_torch over every group of both streams equals
     index.decode_list on every list, and writes the pads."""
-    index, _, port, _, _ = setup[name]
     s, nt = port.state, port.pad_tile
     nvals = port.tiles.docs[:, F_NVALS]
     decoded = {}
@@ -128,6 +128,12 @@ def test_every_tile_decodes_as_the_host(setup, name):
             np.concatenate([decoded["freqs"][t, :nvals[t]] for t in tiles]), hf, err_msg=f"list {li}")
 
 
+@pytest.mark.parametrize("name", BLOCK_TYPES)
+def test_every_tile_decodes_as_the_host(setup, name):
+    index, _, port, _, _ = setup[name]
+    check_every_tile_decodes_as_the_host(index, port)
+
+
 @pytest.fixture(scope="module")
 def small_parts(coll, setup):
     """name -> (port engine, JAX engine) over setup's indexes with small
@@ -154,9 +160,7 @@ def test_plan_arrays_match_jax(coll, small_parts, name, ops):
     assert _plan_arrays(got) == _plan_arrays(exp)
 
 
-@pytest.mark.parametrize("name", BLOCK_TYPES)
-def test_norm_cache_matches_jax(setup, name):
-    _, _, port, ref, _ = setup[name]
+def check_norm_cache(port, ref):
     port._ensure_norm_cache()
     ref._ensure_norm_cache()
     np.testing.assert_array_equal(port.state.den_blocks.numpy(), np.asarray(ref.den_blocks))
@@ -164,8 +168,12 @@ def test_norm_cache_matches_jax(setup, name):
 
 
 @pytest.mark.parametrize("name", BLOCK_TYPES)
-def test_counts_match_jax_and_oracle(setup, queries, name):
-    index, _, port, ref, _ = setup[name]
+def test_norm_cache_matches_jax(setup, name):
+    check_norm_cache(*setup[name][2:4])
+
+
+def check_counts(index, port, ref, queries):
+    """and/or counts exactly equal to the JAX engine's and the oracle's."""
     got_and, got_or = port.and_counts(queries), port.or_counts(queries)
     np.testing.assert_array_equal(got_and, ref.and_counts(queries))
     np.testing.assert_array_equal(got_or, ref.or_counts(queries))
@@ -175,54 +183,56 @@ def test_counts_match_jax_and_oracle(setup, queries, name):
 
 
 @pytest.mark.parametrize("name", BLOCK_TYPES)
-def test_ranked_match_jax_and_oracle(setup, queries, name):
-    index, wdata, port, ref, _ = setup[name]
+def test_counts_match_jax_and_oracle(setup, queries, name):
+    index, _, port, ref, _ = setup[name]
+    check_counts(index, port, ref, queries)
+
+
+def check_ranked(index, wdata, port, ref, queries):
+    """Top-10 ranked_and / ranked_or within rtol 1e-3 of the JAX engine's
+    and the oracle's; returns the port's (and, or) results."""
     got_and, got_or = port.ranked_and(queries, k=10), port.ranked_or(queries, k=10)
     _assert_topk_close(got_and, ref.ranked_and(queries, k=10), queries)
     _assert_topk_close(got_or, ref.ranked_or(queries, k=10), queries)
     _assert_topk_close(got_and, [ranked_and_query(index, wdata, q, k=10) for q in queries], queries)
     _assert_topk_close(got_or, [ranked_or_query(index, wdata, q, k=10) for q in queries], queries)
+    return got_and, got_or
 
 
-def test_from_state_over_block_index(setup, queries):
+@pytest.mark.parametrize("name", BLOCK_TYPES)
+def test_ranked_match_jax_and_oracle(setup, queries, name):
+    index, wdata, port, ref, _ = setup[name]
+    check_ranked(index, wdata, port, ref, queries)
+
+
+def test_from_state_over_block_index(coll, setup, queries):
     """An engine over the JAX engine's resident arrays (its one word
     stream given for both fields, norm cache included) serves the same
-    results."""
-    _, _, port, ref, port_index = setup["block_optpfor"]
-    ref._ensure_norm_cache()
-    words = np.asarray(ref.docs_words)
-    state = resident_state_from_arrays(
-        words, words, np.asarray(ref.tiles_docs), np.asarray(ref.tiles_freqs),
-        np.asarray(ref.norm_den), den_blocks=np.asarray(ref.den_blocks),
-        tile_gblk0=np.asarray(ref.tile_gblk0), device="cpu",
-    )
-    assert state.freqs_words is state.docs_words
-    eng = ResidentEngine.from_state(port_index, state)
-    assert eng.ranked_and(queries) == port.ranked_and(queries)
-    assert eng.ranked_or(queries) == port.ranked_or(queries)
-    np.testing.assert_array_equal(eng.or_counts(queries), port.or_counts(queries))
-    with pytest.raises(ValueError, match="does not belong"):
-        ResidentEngine.from_state(setup["block_interpolative"][4], state)
-
-
-@pytest.mark.parametrize("name", ["block_varint", "block_qmx", "block_mixed"])
-def test_other_block_codecs_raise(coll, name, monkeypatch):
-    """The port's own varint and QMX indexes raise; a mixed index comes
-    only from the reference's transformation (index/hybrid.py, which the
-    port does not carry), so a port block_optpfor index given the port's
-    MixedBlock codec stands in for one, and raises alike."""
-    c = PortCollection(coll)
-    b = port_index_type("block_optpfor" if name == "block_mixed" else name).builder(
-        c.num_docs, PortParams())
-    for i, (docs, freqs) in enumerate(c):
-        b.add_posting_list(len(docs), docs, freqs, int(np.asarray(freqs).sum()))
-        if i == 50:
-            break
-    index = b.build()
-    if name == "block_mixed":
-        monkeypatch.setattr(index, "codec", PortMixedBlock)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ResidentEngine(index, device="cpu")
+    results: over block_optpfor (exception patch words appended) and over
+    block_qmx (the QMX kernel's fields)."""
+    wdata, port_wdata = setup["block_optpfor"][1], build_wdata(coll, "port")
+    qmx = (build_index(coll, "block_qmx", "ref"), build_index(coll, "block_qmx", "port"))
+    engines = {
+        "block_optpfor": setup["block_optpfor"][2:5],
+        "block_qmx": (ResidentEngine(qmx[1], port_wdata, device="cpu"),
+                      JaxResidentEngine(qmx[0], wdata), qmx[1]),
+    }
+    for name, (port, ref, port_index) in engines.items():
+        ref._ensure_norm_cache()
+        words = np.asarray(ref.docs_words)
+        state = resident_state_from_arrays(
+            words, words, np.asarray(ref.tiles_docs), np.asarray(ref.tiles_freqs),
+            np.asarray(ref.norm_den), den_blocks=np.asarray(ref.den_blocks),
+            tile_gblk0=np.asarray(ref.tile_gblk0), device="cpu",
+        )
+        assert state.freqs_words is state.docs_words
+        eng = ResidentEngine.from_state(port_index, state)
+        assert eng.ranked_and(queries) == port.ranked_and(queries), name
+        assert eng.ranked_or(queries) == port.ranked_or(queries), name
+        np.testing.assert_array_equal(eng.or_counts(queries), port.or_counts(queries))
+        with pytest.raises(ValueError, match="does not belong"):
+            ResidentEngine.from_state(setup["block_interpolative"][4], state)
+    assert any(st[0] == "qmx" for st in engines["block_qmx"][0].group_statics_d)
 
 
 @pytest.mark.parametrize("name", ["opt", "block_optpfor", "block_mixed"])

@@ -1,8 +1,8 @@
 """The port on the card: each CUDA kernel (the part-level EF pair
-decode, OptPFor and interpolative block decode, launch by launch and as
-a whole part; the block-max pass in both forms) against its plain
-PyTorch version, and ResidentEngine on CUDA against the same engine on
-the CPU, exhaustive and pruned.
+decode, OptPFor, Varint-G8IU, QMX and interpolative block decode, launch
+by launch and as a whole part; the block-max pass in both forms) against
+its plain PyTorch version, and ResidentEngine on CUDA against the same
+engine on the CPU, exhaustive and pruned, over every index type.
 
 Every test here is marked `cuda` and skips where torch.cuda.is_available()
 is False. The card's machine has no jax, so run them there without the
@@ -18,14 +18,15 @@ import torch
 from ds2i_torch.engine import ResidentEngine, resident
 from ds2i_torch.host import (
     BinaryFreqCollection, GlobalParameters, WandData, generate_collection,
-    make_index_type, read_queries, read_sizes,
+    make_index_type, mixed_choices, read_queries, read_sizes, rebuild_mixed,
 )
 from ds2i_torch.ops import block_decode, pair_decode
 from ds2i_torch.ops.blockmax import blockmax_rows, blockmax_rows_torch
 from ds2i_torch.ops.block_decode import (
-    KERNELS, PartLayout, decode_launch_torch, interp_decode, optpfor_decode, split_decode_part,
-    split_decode_part_torch,
+    KERNELS, WRAPPERS, PartLayout, decode_launch_torch, interp_decode, optpfor_decode,
+    qmx_decode, split_decode_part, split_decode_part_torch, varint_decode,
 )
+
 from ds2i_torch.ops.pair_decode import (
     decode_pair, decode_pair_launch_torch, pair_decode_part, pair_decode_part_torch,
 )
@@ -49,14 +50,24 @@ def coll(cuda, tmp_path_factory):
 
 
 def build(coll_base, name):
+    """`name` index of the collection; block_mixed is rebuild_mixed over
+    block_optpfor with mixed_choices."""
     c = BinaryFreqCollection(coll_base)
-    b = make_index_type(name).builder(c.num_docs, GlobalParameters())
+    b = make_index_type("block_optpfor" if name == "block_mixed" else name).builder(
+        c.num_docs, GlobalParameters())
     for docs, freqs in c:
         b.add_posting_list(len(docs), docs, freqs, int(np.asarray(freqs).sum()))
-    return b.build()
+    index = b.build()
+    return rebuild_mixed(index, *mixed_choices(index)) if name == "block_mixed" else index
 
 
 EF_TYPES = ["ef", "single", "uniform", "opt"]
+BLOCK_TYPES = ["block_optpfor", "block_varint", "block_interpolative", "block_qmx",
+               "block_mixed"]
+# the block kernels each block type launches
+BLOCK_KERNELS = {"block_optpfor": {"optpfor", "interp"}, "block_varint": {"varint", "interp"},
+                 "block_interpolative": {"interp"}, "block_qmx": {"qmx", "interp"},
+                 "block_mixed": {"optpfor", "varint", "interp"}}
 
 
 def _same_bits(a, b):
@@ -121,7 +132,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda, coll):
             PartLayout(((0, 8, st),))
 
 
-@pytest.mark.parametrize("name", ["block_optpfor", "block_interpolative"])
+@pytest.mark.parametrize("name", BLOCK_TYPES)
 def test_block_kernels_match_plain_on_every_group(cuda, coll, name):
     """Each kernel's one launch per stream over every tile, in each mode
     the engine uses (freqs; docs with BM25 weights; docs alone, for the
@@ -135,6 +146,7 @@ def test_block_kernels_match_plain_on_every_group(cuda, coll, name):
     for kernel in KERNELS:  # the freqs buffer the weighted docs launches read
         block_decode.WRAPPERS[kernel](lay.launch(kernel, False, cuda), s.docs_words,
                                       s.tiles_freqs, gf, "freqs", nd, freq)
+    launched = set()
     for kernel in KERNELS:
         wrapper = block_decode.WRAPPERS[kernel]
         for mode in ("freqs", "bm25", "docs", "presence"):
@@ -154,6 +166,7 @@ def test_block_kernels_match_plain_on_every_group(cuda, coll, name):
                        s.den_blocks, s.tile_gblk0)
                     torch.cuda.synchronize()
                     assert wrapper.launches == before + 1
+                    launched.add(kernel)
                 else:
                     fn(launch, s.docs_words, table, gtile, mode, nd, out, w, freq, bp,
                        s.den_blocks, s.tile_gblk0)
@@ -162,10 +175,11 @@ def test_block_kernels_match_plain_on_every_group(cuda, coll, name):
             torch.testing.assert_close(go, po, rtol=0, atol=0)
             if gw is not None:
                 torch.testing.assert_close(gw, pw, rtol=0, atol=0)
+    assert launched == BLOCK_KERNELS[name]
 
 
 @pytest.mark.parametrize("weights", ["bm25", "presence", None])
-@pytest.mark.parametrize("name", EF_TYPES + ["block_optpfor", "block_interpolative"])
+@pytest.mark.parametrize("name", EF_TYPES + BLOCK_TYPES)
 def test_part_decode_matches_plain_on_every_part(cuda, coll, name, weights):
     """pair_decode_part (EF family) or split_decode_part (block indexes)
     on the card against its plain version on the card, bit for bit, on
@@ -200,13 +214,13 @@ def test_part_decode_matches_plain_on_every_part(cuda, coll, name, weights):
             continue
         args = (s.docs_words, s.tiles_docs, s.tiles_freqs, gt, gf, bp, lay, nd, weights,
                 s.den_blocks, s.tile_gblk0, rows)
-        before = (optpfor_decode.launches, interp_decode.launches)
+        before = {k: w.launches for k, w in WRAPPERS.items()}
         got = split_decode_part(*args)
         torch.cuda.synchronize()
-        n1, n2 = optpfor_decode.launches - before[0], interp_decode.launches - before[1]
+        n = {k: w.launches - before[k] for k, w in WRAPPERS.items()}
         streams = 2 if weights == "bm25" else 1
-        assert 1 <= n2 <= streams and n1 <= streams
-        assert (n1 > 0) == (name == "block_optpfor")
+        assert 1 <= n["interp"] <= streams and all(x <= streams for x in n.values())
+        assert {k for k, x in n.items() if x > 0} <= BLOCK_KERNELS[name]
         exp = split_decode_part_torch(*args)
         torch.testing.assert_close(got[0], exp[0], rtol=0, atol=0)
         if weights is None:
@@ -240,9 +254,17 @@ def test_block_wrappers_reject_what_the_kernels_do_not_take(cuda, coll):
         PartLayout(((0, 8, ("opt", 5, 4, 128)),))
     with pytest.raises(ValueError, match="interp_decode takes"):
         PartLayout(((0, 8, ("interp", 5, 32)),))
+    with pytest.raises(ValueError, match="varint_decode takes"):
+        PartLayout(((0, 8, ("var", 32, 128)),))
+    with pytest.raises(ValueError, match="qmx_decode takes"):
+        PartLayout(((0, 8, ("qmx", 8, 12, 128)),))
+    with pytest.raises(ValueError, match="CTA table of the optpfor"):
+        varint_decode(launch, s.docs_words, s.tiles_docs, gt, "docs", nd, out)
+    with pytest.raises(ValueError, match="CTA table of the optpfor"):
+        qmx_decode(launch, s.docs_words, s.tiles_docs, gt, "docs", nd, out)
 
 
-@pytest.mark.parametrize("name", ["ef", "opt", "block_optpfor", "block_interpolative"])
+@pytest.mark.parametrize("name", ["ef", "opt"] + BLOCK_TYPES)
 def test_engine_on_cuda_equals_engine_on_cpu(cuda, coll, name):
     """Same decode bits, IEEE f32 add and divide on both devices, the same
     stable sort and shifted-add order: the norm cache, counts and top-10
@@ -314,7 +336,8 @@ def test_blockmax_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         blockmax_rows(d.t(), w, 10)
 
 
-@pytest.mark.parametrize("name", ["opt", "block_optpfor"])
+@pytest.mark.parametrize("name", ["opt", "block_optpfor", "block_varint", "block_qmx",
+                                  "block_mixed"])
 def test_pruned_engine_on_cuda_equals_engine_on_cpu(cuda, coll, name):
     """The block-max metadata of the CUDA engine's decode pass and
     collection pass are byte-equal to the CPU engine's; the pruned

@@ -1,8 +1,9 @@
 """ds2i_torch runs where neither jax nor the JAX package is present: in a
 fresh interpreter whose import system refuses every jax and ds2i_tpu
 module, import the port, serve a CPU ranked_and over an `opt` index
-(pair mode) and a `block_optpfor` index (split mode) against the numpy
-oracle (and, over block_optpfor, the pruned ranked_and too), and check
+(pair mode), a `block_optpfor` index and a `block_mixed` index made from
+it by the port's rebuild_mixed (split mode) against the numpy oracle
+(and, over the block indexes, the pruned ranked_and too), and check
 neither loaded. Each module a caller may import first loads in a fresh
 interpreter (no import cycle breaks it). And no file of the port, nor
 chip_smoke.py, names ds2i_tpu in an import."""
@@ -39,6 +40,7 @@ _SCRIPT = textwrap.dedent("""
     import ds2i_torch.engine
     import ds2i_torch.host
     import ds2i_torch.engine.block_tiles
+    import ds2i_torch.index.hybrid
     import ds2i_torch.kernels
     import ds2i_torch.ops.block_decode
     import ds2i_torch.ops.blockmax
@@ -46,7 +48,7 @@ _SCRIPT = textwrap.dedent("""
     from ds2i_torch.engine import ResidentEngine
     from ds2i_torch.host import (
         BinaryFreqCollection, GlobalParameters, WandData, generate_collection,
-        make_index_type, ranked_and_query, read_queries, read_sizes,
+        make_index_type, ranked_and_query, read_queries, read_sizes, rebuild_mixed,
     )
 
     base = sys.argv[1]
@@ -55,15 +57,20 @@ _SCRIPT = textwrap.dedent("""
     c = BinaryFreqCollection(base)
     wdata = WandData.build(read_sizes(base), c)
     queries = read_queries(base + ".queries")
-    for name in ("opt", "block_optpfor"):
-        b = make_index_type(name).builder(c.num_docs, GlobalParameters())
-        for docs, freqs in c:
-            b.add_posting_list(len(docs), docs, freqs, int(np.asarray(freqs).sum()))
-        index = b.build()
+    for name in ("opt", "block_optpfor", "block_mixed"):
+        if name == "block_mixed":
+            nb = sum(len(index.get_blocks(li)) for li in range(index.size()))
+            types = np.random.RandomState(2).randint(0, 3, 2 * nb)
+            index = rebuild_mixed(index, types, np.where(types == 0, 10, 0))
+        else:
+            b = make_index_type(name).builder(c.num_docs, GlobalParameters())
+            for docs, freqs in c:
+                b.add_posting_list(len(docs), docs, freqs, int(np.asarray(freqs).sum()))
+            index = b.build()
         eng = ResidentEngine(index, wdata, device="cpu")
-        assert eng.split == (name == "block_optpfor")
+        assert eng.split == (name != "opt")
         got = eng.ranked_and(queries, k=10)
-        if name == "block_optpfor":
+        if name != "opt":
             pruned = eng.ranked_and(queries, k=10, prune=True)
             assert eng.wmax_blk is not None
         for i, (g, q) in enumerate(zip(got, queries)):
@@ -71,7 +78,7 @@ _SCRIPT = textwrap.dedent("""
             assert len(g) == len(e), (name, q)
             if e:
                 np.testing.assert_allclose(g, e, rtol=1e-3)
-            if name == "block_optpfor":
+            if name != "opt":
                 assert len(pruned[i]) == len(e), (name, q)
                 if e:
                     np.testing.assert_allclose(pruned[i], e, rtol=1e-3)
@@ -95,7 +102,7 @@ def test_port_imports_and_serves_without_jax(tmp_path):
 @pytest.mark.parametrize("module", [
     "ds2i_torch.kernels", "ds2i_torch.ops.block_decode", "ds2i_torch.ops.pair_decode",
     "ds2i_torch.ops.blockmax", "ds2i_torch.engine", "ds2i_torch.engine.block_tiles",
-    "ds2i_torch.host",
+    "ds2i_torch.host", "ds2i_torch.index.hybrid", "ds2i_torch.utils.extsort",
 ])
 def test_module_imports_first(tmp_path, module):
     """chip_smoke.py imports ds2i_torch.kernels, then ds2i_torch.ops: each
@@ -135,5 +142,7 @@ def test_no_file_of_the_port_imports_the_jax_package():
     for root, _, names in os.walk(os.path.join(_REPO, "ds2i_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 40
+    for module in ("index/hybrid.py", "utils/extsort.py"):
+        assert os.path.join(_REPO, "ds2i_torch", module) in files
     bad = {os.path.relpath(f, _REPO): hits for f in files if (hits := _names_ds2i_tpu(f))}
     assert not bad, bad

@@ -15,10 +15,6 @@ from ds2i_tpu.engine import ResidentEngine as JaxResidentEngine
 from ds2i_tpu.io import generate_collection
 from ds2i_tpu.queries import and_query, or_query, ranked_and_query, ranked_or_query, read_queries
 
-from ds2i_torch.host import BinaryFreqCollection as PortCollection
-from ds2i_torch.host import GlobalParameters as PortParams
-from ds2i_torch.host import make_index_type as port_index_type
-
 from ds2i_torch.engine import ResidentEngine, resident_state_from_arrays
 
 from test_torch_host_copy import assert_same_walk, build_index, build_wdata
@@ -170,13 +166,3 @@ def test_duplicate_terms(setup, name):
     np.testing.assert_allclose(got, ref.ranked_or([[5, 5]], k=10)[0], rtol=1e-3)
     assert port.and_counts([[5, 5]])[0] == and_query(index, [5, 5])
 
-
-def test_unported_paths_raise(coll):
-    c = PortCollection(coll)
-    b = port_index_type("block_varint").builder(c.num_docs, PortParams())
-    for i, (docs, freqs) in enumerate(c):
-        b.add_posting_list(len(docs), docs, freqs, int(np.asarray(freqs).sum()))
-        if i == 50:
-            break
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ResidentEngine(b.build(), device="cpu")

@@ -26,7 +26,7 @@ from ds2i_torch.engine import ResidentEngine
 from ds2i_torch.engine.tiles import F_NVALS
 from ds2i_torch.ops import block_decode
 from ds2i_torch.ops.block_decode import (
-    K1_ROWS, K2_ROWS, KERNELS, PartLayout, split_decode_part, split_decode_part_torch,
+    KERNELS, ROWS_PER_CTA, PartLayout, split_decode_part, split_decode_part_torch,
 )
 
 from test_torch_host_copy import assert_same_walk, build_index, build_wdata
@@ -55,14 +55,13 @@ def coll(tmp_path_factory):
     return base
 
 
-@pytest.fixture(scope="module")
-def engines(coll):
+def build_engines(coll, names):
     """name -> (port engine, JAX engine, queries), each engine over an
     index of its own package, both with the norm cache built."""
     assert_same_walk()
     qs = read_queries(coll + ".queries")[:40]
     out = {}
-    for name in BLOCK_TYPES:
+    for name in names:
         port = ResidentEngine(build_index(coll, name, "port"), build_wdata(coll, "port"),
                               device="cpu", **KW)
         ref = JaxResidentEngine(build_index(coll, name, "ref"), build_wdata(coll, "ref"), **KW)
@@ -72,6 +71,11 @@ def engines(coll):
     return out
 
 
+@pytest.fixture(scope="module")
+def engines(coll):
+    return build_engines(coll, BLOCK_TYPES)
+
+
 def _part_args(eng, p):
     s = eng.state
     t = lambda a: torch.from_numpy(np.asarray(a).astype(np.int64))  # noqa: E731
@@ -79,10 +83,9 @@ def _part_args(eng, p):
             t(p["blkperm"]), p["layout"])
 
 
-@pytest.mark.parametrize("ranked", [True, False])
-@pytest.mark.parametrize("name", BLOCK_TYPES)
-def test_part_decode_equals_jax_decode_part(engines, name, ranked):
-    port, ref, qs = engines[name]
+def check_part_decode_equals_jax(port, ref, qs, ranked):
+    """split_decode_part_torch (and the CPU wrapper) against the JAX
+    engine's _decode_part on every part of a several-part plan."""
     ops = ("and",) if ranked else ("counts",)
     plan = port.prepare(qs, k=10, ops=ops, ranked=ranked)
     jplan = ref.prepare(qs, k=10, ops=ops, ranked=ranked)
@@ -112,6 +115,12 @@ def test_part_decode_equals_jax_decode_part(engines, name, ranked):
         torch.testing.assert_close(got[1], w32, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("ranked", [True, False])
+@pytest.mark.parametrize("name", BLOCK_TYPES)
+def test_part_decode_equals_jax_decode_part(engines, name, ranked):
+    check_part_decode_equals_jax(*engines[name], ranked)
+
+
 def _covered(layout, kernel, is_docs):
     """(row -> group index, block -> group index) the kernel's table
     covers, asserting each row once and no CTA across two groups."""
@@ -122,7 +131,7 @@ def _covered(layout, kernel, is_docs):
         for r in range(off, off + R):
             row_group[r] = gi
     seen = {}
-    rows_per = K1_ROWS if kernel == "optpfor" else K2_ROWS
+    rows_per = ROWS_PER_CTA[kernel]
     for p1, p2, T, row0, n, blk0 in tab.tolist():
         assert 0 < n <= rows_per
         gis = {row_group[r] for r in range(row0, row0 + n)}
@@ -130,7 +139,7 @@ def _covered(layout, kernel, is_docs):
         gi = gis.pop()
         off, R, st = groups[gi]
         assert block_decode._kernel_of(st) == kernel and st[-1] == T
-        assert (p1, p2) == ((st[1], st[2]) if kernel == "optpfor" else (st[1], 0))
+        assert (p1, p2) == ((st[1], st[2]) if st[0] in ("optp", "qmx") else (st[1], 0))
         bpt = max(T // 32, 1)
         gblk = sum(Rg * max(sg[-1] // 32, 1) for _, Rg, sg in groups[:gi])
         assert blk0 == gblk + (row0 - off) * bpt
@@ -143,12 +152,11 @@ def _covered(layout, kernel, is_docs):
     return tab
 
 
-@pytest.mark.parametrize("name", BLOCK_TYPES)
-def test_cta_tables_cover_every_row_once(engines, name):
+def check_cta_tables(port, qs):
     """Every row of every group of a kernel once, no CTA across two
     groups, blocks at the group's layout, K2's 128-value CTAs first
-    (T descending); every part of a several-part plan, both streams."""
-    port, _, qs = engines[name]
+    (T descending); every part of a several-part plan, both streams.
+    Returns the kernels with CTAs."""
     plan = port.prepare(qs, k=10, ops=("and",))
     kinds = set()
     for p in plan["plans"]:
@@ -165,19 +173,22 @@ def test_cta_tables_cover_every_row_once(engines, name):
                         assert tab[0, 2] == 128
         nb_f = sum(R * max(st[-1] // 32, 1) for _, R, st in p["groups_f"])
         assert lay.nb_d == len(p["blkperm"]) and lay.nb_f == nb_f
+    return kinds
+
+
+@pytest.mark.parametrize("name", BLOCK_TYPES)
+def test_cta_tables_cover_every_row_once(engines, name):
+    kinds = check_cta_tables(engines[name][0], engines[name][2])
     assert kinds == ({"optpfor", "interp"} if name == "block_optpfor" else {"interp"})
 
 
-@pytest.mark.parametrize("weights", ["bm25", "presence", None])
-@pytest.mark.parametrize("name", BLOCK_TYPES)
-def test_launches_compose_to_the_part(engines, name, weights):
+def check_launches_compose(port, qs, weights):
     """The launches the CUDA path makes, each as decode_launch_torch (the
     kernels' contract), in its order (freqs, then docs), give exactly
     split_decode_part_torch; the CPU wrappers count nothing."""
-    port, _, qs = engines[name]
     s = port.state
     plan = port.prepare(qs, k=10, ops=("and",))
-    before = (block_decode.optpfor_decode.launches, block_decode.interp_decode.launches)
+    before = [w.launches for w in block_decode.WRAPPERS.values()]
     for p in plan["plans"]:
         words, td, tf, gt, gf, bp, lay = _part_args(port, p)
         exp_d, exp_w = split_decode_part_torch(
@@ -197,15 +208,19 @@ def test_launches_compose_to_the_part(engines, name, weights):
         torch.testing.assert_close(docs32, exp_d, rtol=0, atol=0)
         if weights:
             torch.testing.assert_close(w32, exp_w, rtol=0, atol=0)
-    assert (block_decode.optpfor_decode.launches, block_decode.interp_decode.launches) == before
+    assert [w.launches for w in block_decode.WRAPPERS.values()] == before
 
 
+@pytest.mark.parametrize("weights", ["bm25", "presence", None])
 @pytest.mark.parametrize("name", BLOCK_TYPES)
-def test_all_tiles_part(engines, name):
+def test_launches_compose_to_the_part(engines, name, weights):
+    check_launches_compose(engines[name][0], engines[name][2], weights)
+
+
+def check_all_tiles_part(port):
     """ResidentEngine.all_tiles_part: every tile once in each stream's rows,
     and each tile's values at its first docs-order and freqs-order block
     of the part's decode, as the host decodes its list."""
-    port, _, _ = engines[name]
     s, nt = port.state, port.pad_tile
     part = port.all_tiles_part()
     for gtile in (part.gtile_ids, part.gtile_f):
@@ -229,6 +244,11 @@ def test_all_tiles_part(engines, name):
             np.concatenate([f[32 * part.tblk_f[t]:][:nvals[t]] for t in tiles]), hf)
 
 
+@pytest.mark.parametrize("name", BLOCK_TYPES)
+def test_all_tiles_part(engines, name):
+    check_all_tiles_part(engines[name][0])
+
+
 def test_kernel_of_rejects_what_the_kernels_do_not_take():
     with pytest.raises(NotImplementedError, match="Simple16"):
         block_decode._kernel_of(("opt", 5, 4, 128))
@@ -236,8 +256,16 @@ def test_kernel_of_rejects_what_the_kernels_do_not_take():
         block_decode._kernel_of(("optp", 5, 3, 128))
     with pytest.raises(ValueError, match="interp_decode takes"):
         block_decode._kernel_of(("interp", 5, 32))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        block_decode._kernel_of(("var", 24, 128))
+    for st in (("var", 32, 128), ("var", 24, 64), ("var", 24, 4, 128)):
+        with pytest.raises(ValueError, match="varint_decode takes"):
+            block_decode._kernel_of(st)
+    for st in (("qmx", 12, 8, 128), ("qmx", 8, 64, 128), ("qmx", 8, 8, 32), ("qmx", 8, 128)):
+        with pytest.raises(ValueError, match="qmx_decode takes"):
+            block_decode._kernel_of(st)
+    with pytest.raises(ValueError, match="unknown group statics"):
+        block_decode._kernel_of(("s16", 4, 128))
+    assert block_decode._kernel_of(("var", 64, 128)) == "varint"
+    assert block_decode._kernel_of(("qmx", 32, 8, 128)) == "qmx"
     empty = PartLayout(((0, 8, ("interp", 4, 32)),))
     assert empty.nb_d == 8 and len(empty.tables["interp", True]) == 1
     assert len(empty.tables["optpfor", True]) == 0 and empty.nb_f == 0
