@@ -70,6 +70,13 @@ index in pair mode, then over a `block_optpfor` index in split mode
      second engine's decode pass
   12. the script's wall time, the kernels' JSON line, then {"ok": true,
      "device": {...}} last
+  Every main path (each slice phase above, exhaustive and and_skip) also
+  launches K3, the join and pack (join_part, csrc/join.cu: at most 2
+  launches a part), and ends in a join phase: every part of the path's
+  plan through join_part against join_part_torch on the card, bit for
+  bit, and one pass of the join timed through the wrapper, alone and
+  plain, beside its bound by bytes (join_bytes); the block_optpfor
+  exhaustive path's numbers go into K3's JSON entry.
 
 Exits non-zero, printing no result, without a CUDA device or when any
 check fails. Scale: DS2I_BENCH_DOCS / _POSTINGS / _TERMS / _QUERIES as
@@ -758,13 +765,98 @@ def part_kernel_phase(eng, plan, code_words, tag):
             f"by {bound_by} ({nbytes} bytes)")
 
 
+def join_bytes(p):
+    """The bytes the join of part p must move, each input read once and
+    each output written once: its real directory entries (4 B each), the
+    32 docids and 32 weights of each block they name (every block once),
+    each packed row's tmax query weights and tgt, and the packed rows."""
+    lay = p["join"]
+    blocks = len(np.unique(lay.ent >> 5))
+    item = 2 if "counts" not in p["ops"] and p["fscale"] is not None else 4
+    return (4 * len(lay.ent) + 256 * blocks + 4 * lay.n_rows * (lay.tmax + 1)
+            + item * lay.n_rows * lay.width)
+
+
+def join_phase(eng, plan, tag, entry=None):
+    """Over every part of the slice's plan: K3 (join_part, csrc/join.cu)
+    on the part's decode against join_part_torch on the card, bit for bit,
+    at most 2 launches a part; then one pass of the join (every part)
+    timed through the wrapper, alone and plain, beside its bound by bytes
+    (join_bytes). entry: K3's JSON entry, to take these numbers."""
+    import torch
+
+    from ds2i_torch.engine import resident
+    from ds2i_torch.ops.join import join_part, join_part_torch
+
+    s, dev, nd = eng.state, eng.device, eng.num_docs
+    ranked = "or" in plan["ops"] or "and" in plan["ops"]
+    parts, max_err = [], 0.0
+    for p in plan["plans"]:
+        gt, gf, bp = p["_dev"][dev][:3]
+        docs32, w32 = resident._decode_part(s, gt, gf, bp, p["layout"], nd, ranked)
+        fetch16 = "counts" not in p["ops"] and p["fscale"] is not None
+        fscale = p["fscale"] if fetch16 else None
+        args = (docs32, w32, p["join"], nd, fetch16, fscale)
+        n0 = join_part.launches
+        got = join_part(*args)
+        n = join_part.launches - n0
+        exp = join_part_torch(docs32, w32, *p["join"].plain(dev), nd, p["k"], p["ops"],
+                              p["tmax"], fetch16, fscale)
+        torch.cuda.synchronize()
+        if not 1 <= n <= 2:
+            raise AssertionError(f"{tag}: join_part launched {n} times on one part")
+        same = got.shape == exp.shape and got.dtype == exp.dtype and torch.equal(
+            got.view(torch.int16 if fetch16 else torch.int32),
+            exp.view(torch.int16 if fetch16 else torch.int32))
+        if not same:
+            raise AssertionError(f"{tag}: join_part differs from join_part_torch on a part of "
+                                 f"the slice's plan")
+        fin = torch.isfinite(exp)
+        if fin.any():
+            max_err = max(max_err, float((got.float() - exp.float())[fin].abs().max()))
+        parts.append((p, args, exp))
+    log(f"{tag} join phase: join_part == join_part_torch on all {len(parts)} parts of the "
+        f"slice's plan, packed rows bit for bit ({sum(p['join'].n_rows for p, _, _ in parts)} "
+        f"rows, {sum(len(p['join'].ent) for p, _, _ in parts)} directory entries, "
+        f"{sum(len(p['join'].items) for p, _, _ in parts)} CTAs, "
+        f"{sum(len(p['join'].merges) for p, _, _ in parts)} merged rows)")
+
+    def run():
+        for _, args, _ in parts:
+            join_part(*args)
+
+    def run_plain():
+        for p, (docs32, w32, lay, _, fetch16, fscale), _ in parts:
+            join_part_torch(docs32, w32, *lay.plain(dev), nd, p["k"], p["ops"], p["tmax"],
+                            fetch16, fscale)
+
+    n0 = join_part.launches
+    run()
+    launches = join_part.launches - n0
+    ms = cuda_ms(run)
+    dev_ms = device_only_ms(run)
+    plain_ms = cuda_ms(run_plain)
+    nbytes = sum(join_bytes(p) for p, _, _ in parts)
+    bound_ms, bound_by = bound(nbytes)
+    log(f"{tag} join phase: K3 over one pass, {launches} launches ({len(parts)} parts): "
+        f"{ms:.4f} ms through the wrapper, {fmt_ms(dev_ms)} alone, plain PyTorch "
+        f"{plain_ms:.4f} ms (median of 5); bound {bound_ms:.4f} ms by {bound_by} ({nbytes} "
+        f"bytes)")
+    if entry is not None:
+        entry.update({"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      # no single PyTorch call joins rows by docid, counts
+                      # and takes the top-k of the runs
+                      "library_ms": None})
+
+
 def slice_phase(eng, queries, wrappers, tag, prune=False):
     """A main path: prepare the whole log (prune: the and_skip plan, its
     probe run on the card), 1 warmup + PASSES timed passes. Every
     wrapper's launch count must rise in the timed passes; a pass launches
-    pair_decode at most once a part, and each block kernel at most twice a
-    part (once per stream). Returns the plan and the last pass's
-    results."""
+    pair_decode at most once a part, each block kernel at most twice a
+    part (once per stream) and join_part at most twice a part. Returns
+    the plan and the last pass's results."""
     import torch
 
     torch.cuda.reset_peak_memory_stats()
@@ -795,8 +887,9 @@ def slice_phase(eng, queries, wrappers, tag, prune=False):
     nparts = len(plan["plans"])
     log(f"{tag} slice phase: launches a pass: "
         f"{ {name: n / PASSES for name, n in timed.items()} } over {nparts} parts")
-    per_part = 1 if plan["plans"][0]["layout"].pair else 2
+    pair = plan["plans"][0]["layout"].pair
     for name, n in timed.items():
+        per_part = 1 if pair and name != "join_part" else 2
         if n > per_part * nparts * PASSES:
             raise AssertionError(f"{name}: {n / PASSES} launches a pass, more than {per_part} a "
                                  f"part")
@@ -811,17 +904,21 @@ def slice_phase(eng, queries, wrappers, tag, prune=False):
     return plan, res
 
 
-def main_path(eng, queries, path_kernels, tag, prune=False, before=None):
+def main_path(eng, queries, path_kernels, tag, prune=False, before=None, join_entry=None):
     """Drive one main path with every kernel's launch count set to 0 just
     before it: before() (if given), then the slice phase. path_kernels is
-    [(JSON entry or None, wrapper)] of the kernels the path must launch;
-    each entry takes its count read just after, and the kernels other than
-    blockmax (which runs only in before()) must launch in the timed passes.
-    Returns the plan and the last pass's results."""
-    from ds2i_torch.ops import block_decode, blockmax, pair_decode
+    [(JSON entry or None, wrapper)] of the decode kernels the path must
+    launch, and K3 (join_part, its JSON entry join_entry or None) runs on
+    every path; each entry takes its count read just after, and the
+    kernels other than blockmax (which runs only in before()) must launch
+    in the timed passes. Then the join phase over the path's plan (K3
+    timed into join_entry). Returns the plan and the last pass's
+    results."""
+    from ds2i_torch.ops import block_decode, blockmax, join, pair_decode
 
+    path_kernels = list(path_kernels) + [(join_entry, join.join_part)]
     all_wrappers = (pair_decode.decode_pair, *block_decode.WRAPPERS.values(),
-                    blockmax.blockmax_rows)
+                    blockmax.blockmax_rows, join.join_part)
     for w in all_wrappers:
         w.launches = 0
     if before is not None:
@@ -837,6 +934,7 @@ def main_path(eng, queries, path_kernels, tag, prune=False, before=None):
             raise AssertionError(f"the {tag} main path never launched the CUDA {w.__name__}")
     check_results(res, len(queries))
     decode_stage_phase(eng, plan, tag)
+    join_phase(eng, plan, tag, join_entry)
     return plan, res
 
 
@@ -1060,7 +1158,7 @@ def opt_prune_phase(eng, queries):
 
 
 
-def block_path(index, wdata, queries, entries, tag):
+def block_path(index, wdata, queries, entries, tag, join_entry=None):
     """A split-mode main path: the engine, the block kernel phase over
     every tile (each kernel bit-equal to its plain version in every mode;
     kernels not yet in `entries` timed, and their JSON entries added
@@ -1068,7 +1166,7 @@ def block_path(index, wdata, queries, entries, tag):
     before it; an entry takes its kernel's count from the first path that
     times it), the part phase and the 300-query oracle. Returns the
     engine, the plan, the last pass's results and the decode wrappers the
-    path launched."""
+    path launched. join_entry: K3's JSON entry, timed on this path."""
     from ds2i_torch.ops import block_decode
 
     eng = start_engine(index, wdata)
@@ -1079,7 +1177,8 @@ def block_path(index, wdata, queries, entries, tag):
     wrappers = [w for k, w in block_decode.WRAPPERS.items()
                 if any(part.layout.launch(k, d, eng.device).n_cta for d in (True, False))]
     entry_of = {e["name"]: e for e in new}
-    plan, res = main_path(eng, queries, [(entry_of.get(w.__name__), w) for w in wrappers], tag)
+    plan, res = main_path(eng, queries, [(entry_of.get(w.__name__), w) for w in wrappers], tag,
+                          join_entry=join_entry)
     part_kernel_phase(eng, plan, code_words, tag)
     oracle_phase(eng, index, wdata, queries, ORACLE_QUERIES, tag)
     return eng, plan, res, wrappers
@@ -1122,9 +1221,11 @@ def main():
 
     # block_optpfor path: split mode, then and_skip, bench.py's default path
     block_entries = []
+    join_entry = {"name": "join", "route": "cuda", "source": "ds2i_torch/csrc/join.cu",
+                  "replaces": "ds2i_tpu/engine/resident.py:527"}
     opt_index = build_index(coll, "block_optpfor")
     eng, plan, res, wrappers = block_path(opt_index, wdata, queries, block_entries,
-                                          "block_optpfor")
+                                          "block_optpfor", join_entry)
     bm_entry = {"name": "blockmax", "route": "cuda", "source": "ds2i_torch/csrc/blockmax.cu",
                 "replaces": "ds2i_tpu/engine/resident.py:358"}
     dec, _ = and_skip_path(eng, opt_index, coll, wdata, queries, plan, res, "block_optpfor",
@@ -1160,7 +1261,8 @@ def main():
     if sorted(by_name) != sorted(order):
         raise AssertionError(f"block kernels timed: {sorted(by_name)}, expected {sorted(order)}")
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [pair_entry, *(by_name[n] for n in order), bm_entry]}))
+    print(json.dumps({"kernels": [pair_entry, *(by_name[n] for n in order), bm_entry,
+                                  join_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

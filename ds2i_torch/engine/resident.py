@@ -24,11 +24,14 @@ Per part (one host plan each), on the device:
      realign the freqs to the docs order (blkperm). Either way the docs
      launch writes the doc-term weights f/(f+den) from the init-time
      norm cache (or presence flags) beside the docids
-  2. each query row gathers its terms' 32-slot blocks by block index
-  3. per length bucket: one stable row sort by docid joins the postings,
-     bounded-run aggregation by shifted adds, AND/OR counts by row
-     reductions, top-k per row
-  4. pack the real rows (scaled f16 when the plan allows) and download
+  2. join and pack (ops.join.join_part, K3: one launch of csrc/join.cu,
+     a second where a row spans several CTAs): each query row's real
+     directory entries name its terms' 32-slot blocks; each posting finds
+     its docid in the row's other term slots by binary search, the
+     highest slot holding it sums the run in the JAX engine's shifted-add
+     order, AND/OR counts and top-k per row, the real rows packed
+     (scaled f16 when the plan allows)
+  3. download
 
 Pruned plans decode only the tiles whose blocks survive the host
 planner's block-max directory (_pruned_directory). Its metadata (per
@@ -58,7 +61,7 @@ from ..queries.bm25 import BM25
 from ..queries.parsing import query_freqs
 from ..utils.logging import logger
 
-from ..ops import block_decode, blockmax, pair_decode
+from ..ops import block_decode, blockmax, join, pair_decode
 from .block_tiles import BF_EX_BASE, build_block_tables, build_exception_patches
 from .state import resident_state_from_arrays
 from .tiles import F_NVALS, N_FIELDS, TILE, build_tile_tables
@@ -67,7 +70,6 @@ _F32 = np.float32
 _I32 = np.int32
 _PACKAGE = __name__.split(".")[0]
 BLOCK = 32
-NEG_INF = float("-inf")
 
 
 def _pow2_at_least(x, lo=1):
@@ -166,72 +168,15 @@ def _decode_slots_step(state, part, num_docs):
     return docs32, w32, wmax, dmax, dmin
 
 
-def _join_bucket(docs32, w32, bdir, qwtab, tgtv, num_docs, k, ops, tmax):
-    """Join/score/top-k for one query bucket (all Bb rows, including the
-    sentinel-padded tail — dropped later by _pack_rows' gather)."""
-    Bb, nb_row = bdir.shape
-    L = nb_row * BLOCK
-    dev = docs32.device
-    blkidx = (bdir >> 5).long()
-    slot = (bdir & 31).long()
-    qw = qwtab.gather(1, slot)  # (Bb, L/32)
-    d = docs32[blkidx].reshape(Bb, L)
-    c = (w32[blkidx] * qw[:, :, None]).reshape(Bb, L)
-    sd, order = torch.sort(d, dim=1, stable=True)
-    sc = c.gather(1, order)
-
-    real = sd < num_docs
-    nxt = torch.cat([sd[:, 1:], torch.full((Bb, 1), -1, dtype=sd.dtype, device=dev)], dim=1)
-    last = sd != nxt
-    run_score = sc
-    run_cnt = real.int()
-    match = torch.ones((Bb, L), dtype=torch.bool, device=dev)
-    # runs are at most tmax long: shifted adds in the JAX engine's order,
-    # so the f32 sums round the same way
-    for m in range(1, tmax):
-        keym = torch.cat([torch.full((Bb, m), -2, dtype=sd.dtype, device=dev), sd[:, :-m]], dim=1)
-        match = match & (sd == keym)
-        cm = torch.cat([torch.zeros((Bb, m), dtype=sc.dtype, device=dev), sc[:, :-m]], dim=1)
-        om = torch.cat([torch.zeros((Bb, m), dtype=torch.int32, device=dev), real[:, :-m].int()], dim=1)
-        run_score = run_score + torch.where(match, cm, 0.0)
-        run_cnt = run_cnt + torch.where(match, om, 0)
-
-    last_real = last & real
-    tgt = tgtv[:, None]
-    and_flag = last_real & (run_cnt == tgt) & (tgt > 0)
-
-    # one f32 row per query: [counts?, topk_or?, topk_and?] (counts are
-    # exact in f32 up to 2^24), so each part downloads ONE array
-    res = []
-    if "counts" in ops:
-        res.append(and_flag.sum(dim=1).float()[:, None])
-        res.append(last_real.sum(dim=1).float()[:, None])
-    for op, flag in (("or", last_real), ("and", and_flag)):
-        if op in ops:
-            res.append(torch.topk(torch.where(flag, run_score, NEG_INF), k, dim=1).values)
-    return torch.cat(res, dim=1)
-
-
-def _pack_rows(rows, pack_idx, fscale, fetch16):
-    """Concatenate the buckets' outputs, gather the real query rows, and
-    cast for download: scores pre-scaled by the host-chosen power of two
-    fscale ride f16 (see ResidentEngine._part_plan); else f32."""
-    full = torch.cat(rows, dim=0) if len(rows) > 1 else rows[0]
-    out = full[pack_idx]
-    return (out * fscale).half() if fetch16 else out
-
-
-def _resident_step(state, gtile_ids, gtile_f, blkperm, bucket_dir, bucket_qwtab,
-                   bucket_tgt, pack_idx, layout, num_docs, k, ops, tmax, fetch16, fscale):
-    """One part: decode -> per-bucket join -> pack. gtile_f and blkperm
-    are the split-mode freqs layout (placeholders in pair mode)."""
+def _resident_step(state, gtile_ids, gtile_f, blkperm, layout, join_layout, num_docs, fetch16,
+                   fscale):
+    """One part: decode -> join and pack (ops.join.join_part: one K3
+    launch on the card, two where a row spans several CTAs). gtile_f and
+    blkperm are the split-mode freqs layout (placeholders in pair mode)."""
+    ops = join_layout.ops
     ranked = ("or" in ops) or ("and" in ops)
     docs32, w32 = _decode_part(state, gtile_ids, gtile_f, blkperm, layout, num_docs, ranked)
-    rows = tuple(
-        _join_bucket(docs32, w32, d, q, t, num_docs=num_docs, k=k, ops=ops, tmax=tmax)
-        for d, q, t in zip(bucket_dir, bucket_qwtab, bucket_tgt)
-    )
-    return _pack_rows(rows, pack_idx, fscale, fetch16)
+    return join.join_part(docs32, w32, join_layout, num_docs, fetch16, fscale)
 
 
 # -- engine ------------------------------------------------------------------
@@ -1328,19 +1273,21 @@ class ResidentEngine:
             else:
                 dir_flat = row_of_blk = col_of_blk = np.zeros(0, np.int64)
 
+        row_ent0 = np.cumsum(row_nb) - row_nb  # each row's first entry in dir_flat
         min_l = max(self.MIN_L, _pow2_at_least(k))
         Lrow = np.maximum(row_nb * BLOCK, 1)
         Lb = (2 ** np.ceil(np.log2(np.maximum(Lrow, min_l)))).astype(np.int64)
         bkey = Lb << 32
 
         # --- bucket the queries by Lb
-        plan_buckets = []
+        plan_buckets, packed = [], []
         ubl = np.unique(bkey)
         bucket_of_row = np.zeros(B, dtype=np.int64)
         row_in_bucket = np.zeros(B, dtype=np.int64)
         for bi, bk in enumerate(ubl):
             L = int(bk) >> 32
             rows = np.nonzero(bkey == bk)[0]
+            packed.append(rows)
             bucket_of_row[rows] = bi
             row_in_bucket[rows] = np.arange(len(rows))
             Bb = _pow2_at_least(len(rows), lo=1)
@@ -1355,11 +1302,14 @@ class ResidentEngine:
             )
         # real-row gather over the concatenation of the buckets' Bb rows
         bb_off = np.cumsum([0] + [pb["Bb"] for pb in plan_buckets])
+        packed = np.concatenate(packed) if packed else np.zeros(0, np.int64)
         pack_idx = np.concatenate(
             [o + np.arange(len(pb["rows"]), dtype=np.int64)
              for o, pb in zip(bb_off[:-1], plan_buckets)]
         ).astype(_I32) if plan_buckets else np.zeros(0, dtype=_I32)
+        row_qw = np.zeros((B, tmax), dtype=_F32)
         if len(terms):
+            row_qw[span_row, slot_of_span] = qw
             b_of_span = bucket_of_row[span_row]
             r_of_span = row_in_bucket[span_row]
             for bi, pb in enumerate(plan_buckets):
@@ -1398,8 +1348,13 @@ class ResidentEngine:
             "blkperm": blkperm,
             "groups": tuple(groups),
             "groups_f": tuple(groups_f),
-            # the CTA tables of the part's kernel launches
+            # the CTA tables of the part's decode launches
             "layout": block_decode.PartLayout(groups, groups_f),
+            # the join's tables: the buckets (the plain join) and the
+            # packed rows' real entries (the join kernel)
+            "join": join.JoinLayout(dir_flat.astype(_I32), row_ent0[packed], row_nb[packed],
+                                    counts[packed], row_qw[packed], plan_buckets, pack_idx, k,
+                                    ops, tmax),
             "buckets": plan_buckets,
             "pack_idx": pack_idx,
             "sent_dir": int(sent_blk << 5),
@@ -1441,7 +1396,7 @@ class ResidentEngine:
         tmax = _pow2_at_least(int(counts.max()) if len(counts) else 1, lo=2)
         if tmax > 32:
             # the block directory packs the term slot into 5 bits next to
-            # the block id ((blk << 5) | slot, _join_bucket)
+            # the block id ((blk << 5) | slot, ops/join.py)
             bad = int(np.argmax(counts > 32))
             raise ValueError(
                 f"ResidentEngine supports at most 32 unique terms per "
@@ -1544,26 +1499,20 @@ class ResidentEngine:
         put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev, non_blocking=True)  # noqa: E731
         pending = []
         for p in plan["plans"]:
-            bb = p["buckets"]
             cache = p.setdefault("_dev", {})
             if dev not in cache:
                 cache[dev] = (
                     put(p["gtile_ids"].astype(np.int64)),
                     put(p["gtile_f"].astype(np.int64)),
                     put(p["blkperm"].astype(np.int64)),
-                    tuple(put(b["dir"]) for b in bb),
-                    tuple(put(b["qwtab"]) for b in bb),
-                    tuple(put(b["tgt"]) for b in bb),
-                    put(p["pack_idx"].astype(np.int64)),
                 )
                 p["layout"].upload(dev)
-            d_gt, d_gf, d_bp, d_dir, d_qw, d_tgt, d_pidx = cache[dev]
+                p["join"].upload(dev)
+            d_gt, d_gf, d_bp = cache[dev]
             fetch16 = "counts" not in p["ops"] and p["fscale"] is not None
             out = _resident_step(
-                self.state, d_gt, d_gf, d_bp, d_dir, d_qw, d_tgt, d_pidx,
-                layout=p["layout"], num_docs=self.num_docs,
-                k=p["k"], ops=p["ops"], tmax=p["tmax"], fetch16=fetch16,
-                fscale=p["fscale"] if fetch16 else None,
+                self.state, d_gt, d_gf, d_bp, p["layout"], p["join"], num_docs=self.num_docs,
+                fetch16=fetch16, fscale=p["fscale"] if fetch16 else None,
             )
             if out.is_cuda:
                 # the download starts as soon as this part's compute ends,

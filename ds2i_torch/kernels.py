@@ -52,6 +52,15 @@ _BLOCKMAX_ARGS = [
     _p, _p, _p, _p,  # wmax f32, dmax int32, dmin int32 (rows,), w plane f32 (planes form, else NULL)
     _p,  # cudaStream_t
 ]
+_JOIN_ARGS = [
+    _p, _p, _p,  # docs32 int32 (rows, 32), w32 f32 (rows, 32), entries int32
+    _p, _p,  # row table int32 (n_rows, 3), qw f32 (n_rows, tmax)
+    _p, _i, _p, _i,  # items int32 (n_items, 4), n_items, merges int32 (n_merge, 3), n_merge
+    _i, _i, _i, _i, _i,  # num_docs, k, ops (bits: counts 1, or 2, and 4), tmax, stage
+    _i, ctypes.c_float,  # fetch16, fscale
+    _p, _p, _p,  # out (n_rows, width) f16 or f32, scratch top-k lists f32, scratch counts int32
+    _p,  # cudaStream_t
+]
 # entry point and argtypes of each kernel library (csrc/<name>.cu)
 ENTRY_POINTS = {
     "pair_decode": ("ds2i_pair_decode_part", _PAIR_ARGS),
@@ -60,6 +69,7 @@ ENTRY_POINTS = {
     "qmx_decode": ("ds2i_qmx_decode_part", _QMX_ARGS),
     "interp_decode": ("ds2i_interp_decode_part", _PART_ARGS),
     "blockmax": ("ds2i_blockmax_rows", _BLOCKMAX_ARGS),
+    "join": ("ds2i_join_part", _JOIN_ARGS),
 }
 
 _LIBS = {}

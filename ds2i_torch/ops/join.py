@@ -1,0 +1,261 @@
+"""The join and pack of a part (K3): every query row's postings joined
+by docid, scored, counted, cut to its top-k and packed for download.
+
+Port of ds2i_tpu/engine/resident.py:_join_bucket and :_pack_rows. Per
+query row: the row's directory entries `dir = blk << 5 | slot` name
+32-slot blocks of the part's decode (docs32 int32, w32 f32); each slot's
+contribution is w32 * qwtab[row, slot] (one f32 multiply); the entries of
+one docid (at most one per term slot, since query_freqs dedups) form a
+run whose score is summed from the highest slot down, ((c_last + c_prev)
++ ...), the JAX engine's shifted-add order; a run with count == tgt is
+in the AND. Output row: [and count, or count] (if "counts"), then the
+top-k run scores of the OR (if "or"), then of the AND (if "and"), -inf
+where fewer; the real rows of every bucket are packed in bucket order,
+scaled by fscale into f16 when the plan downloads f16.
+
+  join_bucket_torch  one bucket, the plain version (sort, shifted adds,
+                     torch.topk), as the engine ran it before the kernel
+  pack_rows_torch    the pack
+  join_part_torch    the whole part in plain PyTorch: every bucket, then
+                     the pack (what the kernel is held to)
+  JoinLayout         the part's tables for the kernel, built by the host
+                     planner with the plan and uploaded once per device
+  join_part          the wrapper: CPU tensors take join_part_torch; CUDA
+                     tensors launch csrc/join.cu (once, or twice where a
+                     row spans several CTAs; counted in
+                     join_part.launches) or raise
+
+The kernel reads a row's real entries alone (no sentinel columns, no pad
+rows). Its search of the other slots relies on the row structure every
+plan gives (tests/test_torch_join.py pins it): each slot's entries are
+contiguous and slots ascend along the row; within a slot, the blocks'
+real docids strictly increase in entry order, each block holding its
+real docids first (slot 0 always real) and its pads (num_docs) last.
+"""
+
+import numpy as np
+import torch
+
+from .. import kernels
+
+BLOCK = 32
+NEG_INF = float("-inf")
+# directory entries of a row per CTA of the kernel (1024 slots); a longer
+# row spans several CTAs whose top-k lists a second launch merges
+CHUNK = 32
+# a row's entries are staged in the CTA's shared memory up to this many
+# (csrc/join.cu kStage); longer rows are searched in device memory
+STAGE = 2048
+# the largest k the kernel takes (its merge sorts 2k values in shared
+# memory)
+KMAX = 4096
+_OP_BITS = {"counts": 1, "or": 2, "and": 4}
+
+
+def join_bucket_torch(docs32, w32, bdir, qwtab, tgtv, num_docs, k, ops, tmax):
+    """Join/score/top-k for one query bucket (all Bb rows, including the
+    sentinel-padded tail — dropped later by pack_rows_torch's gather)."""
+    Bb, nb_row = bdir.shape
+    L = nb_row * BLOCK
+    dev = docs32.device
+    blkidx = (bdir >> 5).long()
+    slot = (bdir & 31).long()
+    qw = qwtab.gather(1, slot)  # (Bb, L/32)
+    d = docs32[blkidx].reshape(Bb, L)
+    c = (w32[blkidx] * qw[:, :, None]).reshape(Bb, L)
+    sd, order = torch.sort(d, dim=1, stable=True)
+    sc = c.gather(1, order)
+
+    real = sd < num_docs
+    nxt = torch.cat([sd[:, 1:], torch.full((Bb, 1), -1, dtype=sd.dtype, device=dev)], dim=1)
+    last = sd != nxt
+    run_score = sc
+    run_cnt = real.int()
+    match = torch.ones((Bb, L), dtype=torch.bool, device=dev)
+    # runs are at most tmax long: shifted adds in the JAX engine's order,
+    # so the f32 sums round the same way
+    for m in range(1, tmax):
+        keym = torch.cat([torch.full((Bb, m), -2, dtype=sd.dtype, device=dev), sd[:, :-m]], dim=1)
+        match = match & (sd == keym)
+        cm = torch.cat([torch.zeros((Bb, m), dtype=sc.dtype, device=dev), sc[:, :-m]], dim=1)
+        om = torch.cat([torch.zeros((Bb, m), dtype=torch.int32, device=dev), real[:, :-m].int()], dim=1)
+        run_score = run_score + torch.where(match, cm, 0.0)
+        run_cnt = run_cnt + torch.where(match, om, 0)
+
+    last_real = last & real
+    tgt = tgtv[:, None]
+    and_flag = last_real & (run_cnt == tgt) & (tgt > 0)
+
+    # one f32 row per query: [counts?, topk_or?, topk_and?] (counts are
+    # exact in f32 up to 2^24), so each part downloads ONE array
+    res = []
+    if "counts" in ops:
+        res.append(and_flag.sum(dim=1).float()[:, None])
+        res.append(last_real.sum(dim=1).float()[:, None])
+    for op, flag in (("or", last_real), ("and", and_flag)):
+        if op in ops:
+            res.append(torch.topk(torch.where(flag, run_score, NEG_INF), k, dim=1).values)
+    return torch.cat(res, dim=1)
+
+
+def pack_rows_torch(rows, pack_idx, fscale, fetch16):
+    """Concatenate the buckets' outputs, gather the real query rows, and
+    cast for download: scores pre-scaled by the host-chosen power of two
+    fscale ride f16 (see ResidentEngine._part_plan); else f32."""
+    full = torch.cat(rows, dim=0) if len(rows) > 1 else rows[0]
+    out = full[pack_idx]
+    return (out * fscale).half() if fetch16 else out
+
+
+def join_part_torch(docs32, w32, bucket_dir, bucket_qwtab, bucket_tgt, pack_idx, num_docs, k,
+                    ops, tmax, fetch16, fscale):
+    """The whole join of a part in plain PyTorch: join_bucket_torch over
+    every bucket, then pack_rows_torch. (n real rows, width) f16 or f32."""
+    rows = tuple(
+        join_bucket_torch(docs32, w32, d, q, t, num_docs=num_docs, k=k, ops=ops, tmax=tmax)
+        for d, q, t in zip(bucket_dir, bucket_qwtab, bucket_tgt)
+    )
+    return pack_rows_torch(rows, pack_idx, fscale, fetch16)
+
+
+class JoinLayout:
+    """One part's join, built on the host with the plan and uploaded once
+    per device. Two forms of the same rows:
+
+      plain   the plan's buckets (dir, qwtab, tgt, all Bb rows) and
+              pack_idx: join_part_torch's inputs (CPU tensors)
+      kernel  csrc/join.cu's tables, over the packed rows only:
+                ent     int32 (n_ent,)      the part's real directory
+                                            entries, row-major
+                rows    int32 (n_rows, 3)   [first entry, entries, tgt]
+                                            of each packed row
+                qw      f32 (n_rows, tmax)  its query weight per slot
+                items   int32 (n_items, 4)  a CTA each: [row, first
+                                            entry in the row, entries
+                                            (<= chunk), scratch slot or
+                                            -1 (the CTA writes the row)]
+                merges  int32 (n_merge, 3)  a CTA each of the second
+                                            launch: [row, first scratch
+                                            slot, slots], rows that
+                                            span more than one item
+
+    row_ent0, row_nent, row_tgt and row_qw are per packed row (pack_idx's
+    order: the buckets' real rows, bucket by bucket)."""
+
+    def __init__(self, ent, row_ent0, row_nent, row_tgt, row_qw, buckets, pack_idx, k, ops,
+                 tmax, chunk=CHUNK):
+        if not 1 <= chunk <= CHUNK:
+            raise ValueError(f"chunk must be in [1, {CHUNK}], got {chunk}")
+        self.k, self.ops, self.tmax = int(k), tuple(ops), int(tmax)
+        self.buckets, self.pack_idx = buckets, pack_idx
+        self.ent = np.ascontiguousarray(ent, dtype=np.int32)
+        self.rows = np.ascontiguousarray(
+            np.stack([row_ent0, row_nent, row_tgt], axis=1).astype(np.int32).reshape(-1, 3))
+        self.qw = np.ascontiguousarray(row_qw, dtype=np.float32).reshape(len(self.rows), self.tmax)
+        self.n_rows = len(self.rows)
+        nent = self.rows[:, 1].astype(np.int64)
+        nit = np.maximum(1, -(-nent // chunk))
+        total = int(nit.sum())
+        item_row = np.repeat(np.arange(self.n_rows, dtype=np.int64), nit)
+        e0 = (np.arange(total, dtype=np.int64) - np.repeat(np.cumsum(nit) - nit, nit)) * chunk
+        ne = np.minimum(chunk, nent[item_row] - e0)
+        multi = nit[item_row] > 1
+        scratch = np.where(multi, np.cumsum(multi) - 1, -1)
+        self.items = np.ascontiguousarray(
+            np.stack([item_row, e0, ne, scratch], axis=1).astype(np.int32).reshape(-1, 4))
+        mrows = np.flatnonzero(nit > 1)
+        first = np.searchsorted(item_row, mrows)
+        self.merges = np.ascontiguousarray(
+            np.stack([mrows, scratch[first] if len(mrows) else first, nit[mrows]],
+                     axis=1).astype(np.int32).reshape(-1, 3))
+        self.n_scratch = int(multi.sum())
+        self.n_ranked = sum(op in self.ops for op in ("or", "and"))
+        self.width = (2 if "counts" in self.ops else 0) + self.k * self.n_ranked
+        self.max_blk = int(self.ent.max() >> 5) if len(self.ent) else -1
+        self._dev = {}
+
+    def upload(self, device):
+        """The tables of the form `device` runs (CPU: plain, else the
+        kernel's) to `device`, once."""
+        device = torch.device(device)
+        return self.plain(device) if device.type == "cpu" else self.tables(device)
+
+    def plain(self, device):
+        """(bucket_dir, bucket_qwtab, bucket_tgt, pack_idx) on `device`:
+        join_part_torch's inputs."""
+        key = ("plain", str(device))
+        if key not in self._dev:
+            put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+            bb = self.buckets
+            self._dev[key] = (tuple(put(b["dir"]) for b in bb), tuple(put(b["qwtab"]) for b in bb),
+                              tuple(put(b["tgt"]) for b in bb),
+                              put(np.asarray(self.pack_idx).astype(np.int64)))
+        return self._dev[key]
+
+    def tables(self, device):
+        """(ent, rows, qw, items, merges) on `device`: the kernel's."""
+        key = ("kernel", str(device))
+        if key not in self._dev:
+            put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+            self._dev[key] = tuple(put(a) for a in (self.ent, self.rows, self.qw, self.items,
+                                                    self.merges))
+        return self._dev[key]
+
+
+def join_part(docs32, w32, layout, num_docs, fetch16, fscale, _stage=STAGE):
+    """The join and pack of a part: (layout.n_rows, layout.width) f16
+    (fetch16: the values times fscale, rounded to nearest) or f32. CPU
+    tensors take join_part_torch over the layout's plain form; CUDA
+    tensors launch csrc/join.cu over its kernel form, once, and once more
+    where a row spans several CTAs (each launch counted in
+    join_part.launches), or raise. _stage: rows of more entries than this
+    are searched in device memory (the card tests lower it to reach that
+    path)."""
+    k, ops, tmax = layout.k, layout.ops, layout.tmax
+    if docs32.device.type == "cpu":
+        return join_part_torch(docs32, w32, *layout.plain(docs32.device), num_docs, k, ops, tmax,
+                               fetch16, fscale)
+    if docs32.device.type != "cuda":
+        raise ValueError(f"join_part runs on cuda or cpu, not {docs32.device}")
+    dev = docs32.device
+    for name, t, dtype in (("docs32", docs32, torch.int32), ("w32", w32, torch.float32)):
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: the kernel takes a contiguous {dtype} tensor on {dev}, got "
+                             f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+    if docs32.dim() != 2 or docs32.shape[1] != BLOCK or w32.shape != docs32.shape:
+        raise ValueError(f"docs32 and w32 must be (rows, {BLOCK}) alike, got "
+                         f"{tuple(docs32.shape)} and {tuple(w32.shape)}")
+    if not 1 <= tmax <= 32:
+        raise ValueError(f"the kernel takes tmax in [1, 32] (a slot is 5 bits), got {tmax}")
+    if layout.n_ranked and not 1 <= k <= KMAX:
+        raise ValueError(f"the kernel takes k in [1, {KMAX}], got {k}")
+    if set(ops) - set(_OP_BITS) or not ops:
+        raise ValueError(f"unknown ops {ops}")
+    if layout.max_blk >= docs32.shape[0]:
+        raise ValueError(f"the layout names block {layout.max_blk}, docs32 has "
+                         f"{docs32.shape[0]} rows")
+    if fetch16 and fscale is None:
+        raise ValueError("fetch16 needs fscale")
+    ent, rows, qw, items, merges = layout.tables(dev)
+    out = torch.empty((layout.n_rows, layout.width),
+                      dtype=torch.float16 if fetch16 else torch.float32, device=dev)
+    if not len(layout.items):
+        return out
+    sc_vals = torch.empty((max(layout.n_scratch, 1), max(layout.n_ranked, 1), k),
+                          dtype=torch.float32, device=dev)
+    sc_cnt = torch.empty((max(layout.n_scratch, 1), 2), dtype=torch.int32, device=dev)
+    opbits = sum(bit for op, bit in _OP_BITS.items() if op in ops)
+    lib = kernels.lib("join")
+    rc = lib.ds2i_join_part(
+        docs32.data_ptr(), w32.data_ptr(), ent.data_ptr(), rows.data_ptr(), qw.data_ptr(),
+        items.data_ptr(), len(layout.items), merges.data_ptr(), len(layout.merges),
+        int(num_docs), int(k), opbits, int(tmax), int(_stage), int(bool(fetch16)),
+        float(fscale) if fetch16 else 1.0, out.data_ptr(), sc_vals.data_ptr(),
+        sc_cnt.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    kernels.check(lib, rc, "join launch")
+    join_part.launches += 1 + (len(layout.merges) > 0)
+    return out
+
+
+join_part.launches = 0

@@ -1,7 +1,8 @@
 """The port on the card: each CUDA kernel (the part-level EF pair
 decode, OptPFor, Varint-G8IU, QMX and interpolative block decode, launch
-by launch and as a whole part; the block-max pass in both forms) against
-its plain PyTorch version, and ResidentEngine on CUDA against the same
+by launch and as a whole part; the block-max pass in both forms; the
+join and pack, K3, on every part of every plan) against its plain
+PyTorch version, and ResidentEngine on CUDA against the same
 engine on the CPU, exhaustive and pruned, over every index type.
 
 Every test here is marked `cuda` and skips where torch.cuda.is_available()
@@ -357,3 +358,128 @@ def test_pruned_engine_on_cuda_equals_engine_on_cpu(cuda, coll, name):
         np.testing.assert_array_equal(getattr(host, field), getattr(cpu, field), err_msg=field)
     assert gpu.ranked_and(queries, k=10, prune=True) == cpu.ranked_and(queries, k=10, prune=True)
     assert gpu.wand(queries, k=10) == cpu.wand(queries, k=10)
+
+
+JOIN_PLANS = {
+    "exhaustive": dict(ops=("and",)),
+    "counts": dict(ops=("counts",), ranked=False),
+    "or_counts": dict(ops=("counts", "or", "and")),
+    "and_skip": dict(ops=("and",), prune=True),
+    "wand": dict(ops=("or",), prune=True),
+    "maxscore": dict(ops=("or",), prune="maxscore"),
+}
+
+
+def _join_plans(eng, queries, which, k=10):
+    """The plan `which` of JOIN_PLANS and the probe sub-plans (f32
+    downloads) its prepare ran."""
+    seen = []
+    dispatch = eng.dispatch
+    eng.dispatch = lambda plan: (seen.append(plan), dispatch(plan))[1]
+    try:
+        plan = eng.prepare(queries, k=k, **JOIN_PLANS[which])
+    finally:
+        del eng.dispatch
+    return [plan] + seen
+
+
+def _assert_join_equal(got, exp):
+    assert got.dtype == exp.dtype and got.shape == exp.shape
+    view = torch.int16 if got.dtype == torch.float16 else torch.int32
+    torch.testing.assert_close(got.view(view), exp.view(view), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("which", list(JOIN_PLANS))
+@pytest.mark.parametrize("name", ["opt", "block_optpfor"])
+def test_join_kernel_matches_plain_on_every_part(cuda, coll, name, which):
+    """K3 (join_part, csrc/join.cu) on every part of the plan and of its
+    probe sub-plans (f32) against join_part_torch on the card, byte for
+    byte, with at most 2 counted launches a part; the same parts with
+    every row searched in device memory (_stage=0), with one entry a CTA
+    (every multi-entry row merged by the second launch) and, where the
+    plan downloads f16, in f32 too. Queries here reach 32 terms (tmax 32)
+    and k 128."""
+    from ds2i_torch.ops.join import JoinLayout, join_part, join_part_torch
+
+    wdata = WandData.build(read_sizes(coll), BinaryFreqCollection(coll))
+    eng = ResidentEngine(build(coll, name), wdata, device=cuda, max_part_slots=1 << 13,
+                         max_part_queries=32)
+    queries = read_queries(coll + ".queries")
+    long = [sum(queries[i:i + 10], []) for i in range(0, 40, 10)]
+    nd = eng.num_docs
+    eng._ensure_norm_cache()
+    parts = 0
+    for k, qs in ((10, queries), (128, queries[:20] + long)):
+        for plan in _join_plans(eng, qs, which, k):
+            eng.execute(plan)  # uploads the plan
+            for p in plan["plans"]:
+                gt, gf, bp = p["_dev"][eng.device][:3]
+                ranked = "or" in p["ops"] or "and" in p["ops"]
+                docs32, w32 = resident._decode_part(eng.state, gt, gf, bp, p["layout"], nd,
+                                                    ranked)
+                lay = p["join"]
+                one = JoinLayout(lay.ent, lay.rows[:, 0], lay.rows[:, 1], lay.rows[:, 2], lay.qw,
+                                 lay.buckets, lay.pack_idx, lay.k, lay.ops, lay.tmax, chunk=1)
+                f16 = "counts" not in p["ops"] and p["fscale"] is not None
+                for fetch16 in sorted({False, f16}):
+                    fscale = p["fscale"] if fetch16 else None
+                    exp = join_part_torch(docs32, w32, *lay.plain(eng.device), nd, p["k"],
+                                          p["ops"], p["tmax"], fetch16, fscale)
+                    for layout, stage in ((lay, 2048), (lay, 0), (one, 2048)):
+                        before = join_part.launches
+                        got = join_part(docs32, w32, layout, nd, fetch16, fscale, _stage=stage)
+                        torch.cuda.synchronize()
+                        n = join_part.launches - before
+                        assert n == 1 + (len(layout.merges) > 0) and n <= 2
+                        _assert_join_equal(got, exp)
+                parts += 1
+    assert parts >= 4
+
+
+def test_join_engine_on_cuda_equals_engine_on_cpu(cuda, coll):
+    """Long queries (tmax 32) through the whole engine: the CUDA engine's
+    counts and top-k scores equal the CPU engine's."""
+    index = build(coll, "block_optpfor")
+    wdata = WandData.build(read_sizes(coll), BinaryFreqCollection(coll))
+    queries = read_queries(coll + ".queries")
+    qs = [sum(queries[i:i + 10], []) for i in range(0, 60, 10)] + queries[:10]
+    gpu = ResidentEngine(index, wdata, device=cuda)
+    cpu = ResidentEngine(index, wdata, device="cpu")
+    np.testing.assert_array_equal(gpu.or_counts(qs), cpu.or_counts(qs))
+    assert gpu.ranked_or(qs, k=64) == cpu.ranked_or(qs, k=64)
+    assert gpu.ranked_and(qs, k=1) == cpu.ranked_and(qs, k=1)
+
+
+def test_join_wrapper_rejects_what_the_kernel_does_not_take(cuda, coll):
+    from ds2i_torch.ops.join import JoinLayout, join_part
+
+    eng = ResidentEngine(build(coll, "opt"), device=cuda)
+    plan = eng.prepare(read_queries(coll + ".queries")[:8], k=10, ops=("and",))
+    p = plan["plans"][0]
+    eng.execute(plan)
+    gt, gf, bp = p["_dev"][eng.device][:3]
+    docs32, w32 = resident._decode_part(eng.state, gt, gf, bp, p["layout"], eng.num_docs, True)
+    lay = p["join"]
+
+    def relaid(**kw):
+        args = dict(k=lay.k, ops=lay.ops, tmax=lay.tmax)
+        args.update(kw)
+        qw = np.zeros((lay.n_rows, args["tmax"]), np.float32)
+        return JoinLayout(lay.ent, lay.rows[:, 0], lay.rows[:, 1], lay.rows[:, 2], qw,
+                          lay.buckets, lay.pack_idx, **args)
+
+    nd = eng.num_docs
+    with pytest.raises(ValueError, match="tmax"):
+        join_part(docs32, w32, relaid(tmax=64), nd, False, None)
+    with pytest.raises(ValueError, match="k in"):
+        join_part(docs32, w32, relaid(k=5000), nd, False, None)
+    with pytest.raises(ValueError, match="w32"):
+        join_part(docs32, w32.cpu(), lay, nd, False, None)
+    with pytest.raises(ValueError, match="docs32"):
+        join_part(docs32.long(), w32, lay, nd, False, None)
+    with pytest.raises(ValueError, match="rows, 32"):
+        join_part(docs32[:, :16].contiguous(), w32[:, :16].contiguous(), lay, nd, False, None)
+    with pytest.raises(ValueError, match="names block"):
+        join_part(docs32[:1].contiguous(), w32[:1].contiguous(), lay, nd, False, None)
+    with pytest.raises(ValueError, match="fscale"):
+        join_part(docs32, w32, lay, nd, True, None)

@@ -3,9 +3,10 @@ fresh interpreter whose import system refuses every jax and ds2i_tpu
 module, import the port, serve a CPU ranked_and over an `opt` index
 (pair mode), a `block_optpfor` index and a `block_mixed` index made from
 it by the port's rebuild_mixed (split mode) against the numpy oracle
-(and, over the block indexes, the pruned ranked_and too), and check
-neither loaded. Each module a caller may import first loads in a fresh
-interpreter (no import cycle breaks it). And no file of the port, nor
+(and, over the block indexes, the pruned ranked_and too; every pass
+joins through ds2i_torch.ops.join), and check neither loaded. Each
+module a caller may import first loads in a fresh interpreter (no
+import cycle breaks it). And no file of the port, nor
 chip_smoke.py, names ds2i_tpu in an import."""
 
 import ast
@@ -44,7 +45,9 @@ _SCRIPT = textwrap.dedent("""
     import ds2i_torch.kernels
     import ds2i_torch.ops.block_decode
     import ds2i_torch.ops.blockmax
+    import ds2i_torch.ops.join
     import ds2i_torch.ops.pair_decode
+    import ds2i_torch.tools.pass_timeline
     from ds2i_torch.engine import ResidentEngine
     from ds2i_torch.host import (
         BinaryFreqCollection, GlobalParameters, WandData, generate_collection,
@@ -101,8 +104,9 @@ def test_port_imports_and_serves_without_jax(tmp_path):
 
 @pytest.mark.parametrize("module", [
     "ds2i_torch.kernels", "ds2i_torch.ops.block_decode", "ds2i_torch.ops.pair_decode",
-    "ds2i_torch.ops.blockmax", "ds2i_torch.engine", "ds2i_torch.engine.block_tiles",
-    "ds2i_torch.host", "ds2i_torch.index.hybrid", "ds2i_torch.utils.extsort",
+    "ds2i_torch.ops.blockmax", "ds2i_torch.ops.join", "ds2i_torch.engine",
+    "ds2i_torch.engine.block_tiles", "ds2i_torch.host", "ds2i_torch.index.hybrid",
+    "ds2i_torch.utils.extsort", "ds2i_torch.tools.pass_timeline",
 ])
 def test_module_imports_first(tmp_path, module):
     """chip_smoke.py imports ds2i_torch.kernels, then ds2i_torch.ops: each
@@ -142,7 +146,7 @@ def test_no_file_of_the_port_imports_the_jax_package():
     for root, _, names in os.walk(os.path.join(_REPO, "ds2i_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 40
-    for module in ("index/hybrid.py", "utils/extsort.py"):
+    for module in ("index/hybrid.py", "utils/extsort.py", "ops/join.py", "tools/pass_timeline.py"):
         assert os.path.join(_REPO, "ds2i_torch", module) in files
     bad = {os.path.relpath(f, _REPO): hits for f in files if (hits := _names_ds2i_tpu(f))}
     assert not bad, bad
