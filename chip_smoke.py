@@ -71,12 +71,15 @@ index in pair mode, then over a `block_optpfor` index in split mode
   12. the script's wall time, the kernels' JSON line, then {"ok": true,
      "device": {...}} last
   Every main path (each slice phase above, exhaustive and and_skip) also
-  launches K3, the join and pack (join_part, csrc/join.cu: at most 2
-  launches a part), and ends in a join phase: every part of the path's
+  launches K3, the join and pack (join_part, csrc/join.cu: one launch a
+  part), and ends in a join phase: every part of the path's
   plan through join_part against join_part_torch on the card, bit for
-  bit, and one pass of the join timed through the wrapper, alone and
-  plain, beside its bound by bytes (join_bytes); the block_optpfor
-  exhaustive path's numbers go into K3's JSON entry.
+  bit; the kernel's work split over the plan (rows on a warp and on CTA
+  items, rows with an empty slot, driving against all entries, AND
+  candidates counted on the card, merged rows); and one pass of the join
+  timed through the wrapper, alone and plain, beside its bound by bytes
+  (join_bytes); the block_optpfor exhaustive path's numbers go into K3's
+  JSON entry.
 
 Exits non-zero, printing no result, without a CUDA device or when any
 check fails. Scale: DS2I_BENCH_DOCS / _POSTINGS / _TERMS / _QUERIES as
@@ -769,7 +772,11 @@ def join_bytes(p):
     """The bytes the join of part p must move, each input read once and
     each output written once: its real directory entries (4 B each), the
     32 docids and 32 weights of each block they name (every block once),
-    each packed row's tmax query weights and tgt, and the packed rows."""
+    each packed row's tmax query weights and tgt, and the packed rows.
+    Whichever slot drives a row, the function still needs every named
+    block: an AND result's score sums a weight of each of the row's
+    slots, and the search must read a block to know a docid is not in
+    it."""
     lay = p["join"]
     blocks = len(np.unique(lay.ent >> 5))
     item = 2 if "counts" not in p["ops"] and p["fscale"] is not None else 4
@@ -777,10 +784,34 @@ def join_bytes(p):
             + item * lay.n_rows * lay.width)
 
 
+def and_candidates(lay, docs32, nd):
+    """(AND candidates of the multi-term rows, real postings of the
+    single-term rows) of a part: the docids found in all tgt slots of
+    their row, counted with torch on the card from the part's decode."""
+    import torch
+
+    dev = docs32.device
+    ent0, nent, tgt = (torch.from_numpy(lay.rows[:, i].astype(np.int64)).to(dev)
+                       for i in range(3))
+    total = int(nent.sum())
+    if not total:
+        return 0, 0
+    row_of = torch.repeat_interleave(torch.arange(len(lay.rows), device=dev), nent)
+    at = (torch.repeat_interleave(ent0 - (torch.cumsum(nent, 0) - nent), nent)
+          + torch.arange(total, device=dev))
+    ent = torch.from_numpy(lay.ent.astype(np.int64)).to(dev)[at]
+    doc = docs32[ent >> 5].long()
+    real = doc < nd
+    key = (row_of[:, None] * (nd + 1) + doc)[real]
+    u, c = torch.unique(key, return_counts=True)
+    t = tgt[u // (nd + 1)]
+    return int(((c == t) & (t > 1)).sum()), int(c[t == 1].sum())
+
+
 def join_phase(eng, plan, tag, entry=None):
     """Over every part of the slice's plan: K3 (join_part, csrc/join.cu)
     on the part's decode against join_part_torch on the card, bit for bit,
-    at most 2 launches a part; then one pass of the join (every part)
+    one launch a part; then one pass of the join (every part)
     timed through the wrapper, alone and plain, beside its bound by bytes
     (join_bytes). entry: K3's JSON entry, to take these numbers."""
     import torch
@@ -803,7 +834,7 @@ def join_phase(eng, plan, tag, entry=None):
         exp = join_part_torch(docs32, w32, *p["join"].plain(dev), nd, p["k"], p["ops"],
                               p["tmax"], fetch16, fscale)
         torch.cuda.synchronize()
-        if not 1 <= n <= 2:
+        if n != 1:
             raise AssertionError(f"{tag}: join_part launched {n} times on one part")
         same = got.shape == exp.shape and got.dtype == exp.dtype and torch.equal(
             got.view(torch.int16 if fetch16 else torch.int32),
@@ -815,11 +846,21 @@ def join_phase(eng, plan, tag, entry=None):
         if fin.any():
             max_err = max(max_err, float((got.float() - exp.float())[fin].abs().max()))
         parts.append((p, args, exp))
+    st = {}
+    for p, (docs32, *_), _ in parts:
+        for key, v in p["join"].structure().items():
+            st[key] = st.get(key, 0) + v
+        cand, single = and_candidates(p["join"], docs32, nd)
+        st["and_candidates"] = st.get("and_candidates", 0) + cand
+        st["single_term_postings"] = st.get("single_term_postings", 0) + single
+    rows = sum(p["join"].n_rows for p, _, _ in parts)
     log(f"{tag} join phase: join_part == join_part_torch on all {len(parts)} parts of the "
-        f"slice's plan, packed rows bit for bit ({sum(p['join'].n_rows for p, _, _ in parts)} "
-        f"rows, {sum(len(p['join'].ent) for p, _, _ in parts)} directory entries, "
-        f"{sum(len(p['join'].items) for p, _, _ in parts)} CTAs, "
-        f"{sum(len(p['join'].merges) for p, _, _ in parts)} merged rows)")
+        f"slice's plan, packed rows bit for bit ({rows} rows: {st['warp_rows']} on a warp, "
+        f"{st['cta_rows']} on {st['items']} CTA items, {st['empty_rows']} with an empty slot; "
+        f"{st['drive_entries']} driving of {st['entries']} directory entries; "
+        f"{st['and_candidates']} AND candidates in multi-term rows, "
+        f"{st['single_term_postings']} postings of single-term rows; "
+        f"{st['merged_rows']} merged rows)")
 
     def run():
         for _, args, _ in parts:
@@ -855,7 +896,7 @@ def slice_phase(eng, queries, wrappers, tag, prune=False):
     probe run on the card), 1 warmup + PASSES timed passes. Every
     wrapper's launch count must rise in the timed passes; a pass launches
     pair_decode at most once a part, each block kernel at most twice a
-    part (once per stream) and join_part at most twice a part. Returns
+    part (once per stream) and join_part once a part. Returns
     the plan and the last pass's results."""
     import torch
 
@@ -889,7 +930,7 @@ def slice_phase(eng, queries, wrappers, tag, prune=False):
         f"{ {name: n / PASSES for name, n in timed.items()} } over {nparts} parts")
     pair = plan["plans"][0]["layout"].pair
     for name, n in timed.items():
-        per_part = 1 if pair and name != "join_part" else 2
+        per_part = 1 if pair or name == "join_part" else 2
         if n > per_part * nparts * PASSES:
             raise AssertionError(f"{name}: {n / PASSES} launches a pass, more than {per_part} a "
                                  f"part")

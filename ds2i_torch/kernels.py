@@ -54,8 +54,9 @@ _BLOCKMAX_ARGS = [
 ]
 _JOIN_ARGS = [
     _p, _p, _p,  # docs32 int32 (rows, 32), w32 f32 (rows, 32), entries int32
-    _p, _p,  # row table int32 (n_rows, 3), qw f32 (n_rows, tmax)
-    _p, _i, _p, _i,  # items int32 (n_items, 4), n_items, merges int32 (n_merge, 3), n_merge
+    _p, _p,  # row table int32 (n_rows, 5), qw f32 (n_rows, tmax)
+    _p, _i, _p, _i,  # CTA items int32 (n_items, 5), n_items, warp rows int32, n_wrows
+    _p, _p, _i,  # merges int32 (n_merge, 3), their arrival counts int32 (n_merge,), n_merge
     _i, _i, _i, _i, _i,  # num_docs, k, ops (bits: counts 1, or 2, and 4), tmax, stage
     _i, ctypes.c_float,  # fetch16, fscale
     _p, _p, _p,  # out (n_rows, width) f16 or f32, scratch top-k lists f32, scratch counts int32

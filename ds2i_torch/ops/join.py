@@ -21,12 +21,14 @@ scaled by fscale into f16 when the plan downloads f16.
   JoinLayout         the part's tables for the kernel, built by the host
                      planner with the plan and uploaded once per device
   join_part          the wrapper: CPU tensors take join_part_torch; CUDA
-                     tensors launch csrc/join.cu (once, or twice where a
-                     row spans several CTAs; counted in
+                     tensors launch csrc/join.cu once (counted in
                      join_part.launches) or raise
 
 The kernel reads a row's real entries alone (no sentinel columns, no pad
-rows). Its search of the other slots relies on the row structure every
+rows) and drives each row from some of them: where the plan asks for the
+AND top-k alone (ops ("and",)), from the entries of the row's shortest
+term slot, since an AND result lies in every slot; else from all of
+them. Its search of the other slots relies on the row structure every
 plan gives (tests/test_torch_join.py pins it): each slot's entries are
 contiguous and slots ascend along the row; within a slot, the blocks'
 real docids strictly increase in entry order, each block holding its
@@ -40,14 +42,24 @@ from .. import kernels
 
 BLOCK = 32
 NEG_INF = float("-inf")
-# directory entries of a row per CTA of the kernel (1024 slots); a longer
-# row spans several CTAs whose top-k lists a second launch merges
+# driving entries of a row per CTA item at most (csrc/join.cu kChunk: an
+# item's candidates fit its 32 * 32 slots); a row of more spans several
+# items, the last of which to finish merges their top-k lists
 CHUNK = 32
+# a row of at most this many driving entries, and of at most WARP_STAGE
+# entries, takes one warp (csrc/join.cu: 8 such rows a CTA) where k fits
+# a warp's registers (k <= WARP_K); the others take CTA items. Set on the
+# H100 with CHUNK: rows of 3 or more driving entries finish sooner on a
+# CTA's 8 warps (PERF.md §6, the work split)
+WARP_DRIVE = 2
+WARP_STAGE = 256
+WARP_K = 32
 # a row's entries are staged in the CTA's shared memory up to this many
-# (csrc/join.cu kStage); longer rows are searched in device memory
+# (csrc/join.cu kStage; a warp row's up to WARP_STAGE); longer rows are
+# searched in device memory
 STAGE = 2048
-# the largest k the kernel takes (its merge sorts 2k values in shared
-# memory)
+# the largest k the kernel takes (the merge of a row's lists sorts 2k
+# values in shared memory)
 KMAX = 4096
 _OP_BITS = {"counts": 1, "or": 2, "and": 4}
 
@@ -127,17 +139,32 @@ class JoinLayout:
       kernel  csrc/join.cu's tables, over the packed rows only:
                 ent     int32 (n_ent,)      the part's real directory
                                             entries, row-major
-                rows    int32 (n_rows, 3)   [first entry, entries, tgt]
-                                            of each packed row
+                rows    int32 (n_rows, 5)   [first entry, entries, tgt,
+                                            first driving entry in the
+                                            row, driving entries] of
+                                            each packed row
                 qw      f32 (n_rows, tmax)  its query weight per slot
-                items   int32 (n_items, 4)  a CTA each: [row, first
-                                            entry in the row, entries
-                                            (<= chunk), scratch slot or
-                                            -1 (the CTA writes the row)]
-                merges  int32 (n_merge, 3)  a CTA each of the second
-                                            launch: [row, first scratch
-                                            slot, slots], rows that
-                                            span more than one item
+                items   int32 (n_items, 5)  a CTA each, first: [row,
+                                            first driving entry in the
+                                            row, driving entries (<=
+                                            chunk), scratch slot and
+                                            merged row, or -1 and -1
+                                            (the CTA writes the row)]
+                wrows   int32 (n_wrows,)    the rows a warp takes, 8 a
+                                            CTA after the items
+                merges  int32 (n_merge, 3)  the rows that span more
+                                            than one item: [row, first
+                                            scratch slot, slots]; the
+                                            last of a row's items to
+                                            finish merges its lists
+
+    Driving entries: with ops ("and",) the entries of the row's shortest
+    slot among 0 .. tgt-1 (none where one of them has no entry: the row
+    has no AND result, `empty`); else all of the row's entries. A row of
+    at most WARP_DRIVE driving entries and WARP_STAGE entries is a warp
+    row where k <= WARP_K (or nothing is ranked); the others are split
+    into items of at most chunk driving entries. Items and warp rows go
+    most driving entries first.
 
     row_ent0, row_nent, row_tgt and row_qw are per packed row (pack_idx's
     order: the buckets' real rows, bucket by bucket)."""
@@ -149,30 +176,67 @@ class JoinLayout:
         self.k, self.ops, self.tmax = int(k), tuple(ops), int(tmax)
         self.buckets, self.pack_idx = buckets, pack_idx
         self.ent = np.ascontiguousarray(ent, dtype=np.int32)
+        self.n_rows = n = len(np.asarray(row_nent))
+        nent = np.asarray(row_nent, dtype=np.int64).reshape(n)
+        tgt = np.asarray(row_tgt, dtype=np.int64).reshape(n)
+        self.and_only = self.ops == ("and",)
+        ent0 = np.asarray(row_ent0, np.int64).reshape(n)
+        if self.and_only and n:
+            # the packed rows' entries, row by row (rows are packed in
+            # bucket order, their entries lie in query order)
+            excl = np.cumsum(nent) - nent
+            at = np.repeat(ent0 - excl, nent) + np.arange(int(nent.sum()), dtype=np.int64)
+            row_of = np.repeat(np.arange(n, dtype=np.int64), nent)
+            cnt = np.bincount(row_of * BLOCK + (self.ent[at].astype(np.int64) & 31),
+                              minlength=n * BLOCK).reshape(n, BLOCK)
+            in_row = np.arange(BLOCK)[None, :] < tgt[:, None]
+            drive = np.argmin(np.where(in_row, cnt, np.iinfo(np.int64).max), axis=1)
+            nd = np.where(tgt > 0, cnt[np.arange(n), drive], 0)
+            d0 = np.where(np.arange(BLOCK)[None, :] < drive[:, None], cnt, 0).sum(axis=1)
+            self.empty = (tgt > 0) & (nd == 0)
+        else:
+            nd, d0 = nent.copy(), np.zeros(n, np.int64)
+            self.empty = np.zeros(n, bool)
         self.rows = np.ascontiguousarray(
-            np.stack([row_ent0, row_nent, row_tgt], axis=1).astype(np.int32).reshape(-1, 3))
-        self.qw = np.ascontiguousarray(row_qw, dtype=np.float32).reshape(len(self.rows), self.tmax)
-        self.n_rows = len(self.rows)
-        nent = self.rows[:, 1].astype(np.int64)
-        nit = np.maximum(1, -(-nent // chunk))
-        total = int(nit.sum())
-        item_row = np.repeat(np.arange(self.n_rows, dtype=np.int64), nit)
-        e0 = (np.arange(total, dtype=np.int64) - np.repeat(np.cumsum(nit) - nit, nit)) * chunk
-        ne = np.minimum(chunk, nent[item_row] - e0)
-        multi = nit[item_row] > 1
-        scratch = np.where(multi, np.cumsum(multi) - 1, -1)
-        self.items = np.ascontiguousarray(
-            np.stack([item_row, e0, ne, scratch], axis=1).astype(np.int32).reshape(-1, 4))
-        mrows = np.flatnonzero(nit > 1)
-        first = np.searchsorted(item_row, mrows)
-        self.merges = np.ascontiguousarray(
-            np.stack([mrows, scratch[first] if len(mrows) else first, nit[mrows]],
-                     axis=1).astype(np.int32).reshape(-1, 3))
-        self.n_scratch = int(multi.sum())
+            np.stack([ent0, nent, tgt, d0, nd], axis=1).astype(np.int32).reshape(-1, 5))
+        self.qw = np.ascontiguousarray(row_qw, dtype=np.float32).reshape(n, self.tmax)
         self.n_ranked = sum(op in self.ops for op in ("or", "and"))
         self.width = (2 if "counts" in self.ops else 0) + self.k * self.n_ranked
+        warp = (nd <= WARP_DRIVE) & (nent <= WARP_STAGE)
+        if self.n_ranked and self.k > WARP_K:
+            warp[:] = False
+        wrows = np.flatnonzero(warp)
+        self.wrows = np.ascontiguousarray(
+            wrows[np.argsort(-nd[wrows], kind="stable")].astype(np.int32))
+        crows = np.flatnonzero(~warp)
+        nit = np.maximum(1, -(-nd[crows] // chunk))
+        total = int(nit.sum())
+        item_row = np.repeat(crows, nit)
+        j = np.arange(total, dtype=np.int64) - np.repeat(np.cumsum(nit) - nit, nit)
+        ne = np.minimum(chunk, nd[item_row] - j * chunk)
+        multi = np.repeat(nit > 1, nit)
+        scratch = np.where(multi, np.cumsum(multi) - 1, -1)
+        many = nit > 1
+        merge = np.where(multi, np.repeat(np.cumsum(many) - 1, nit), -1)
+        items = np.stack([item_row, d0[item_row] + j * chunk, ne, scratch, merge], axis=1)
+        self.items = np.ascontiguousarray(
+            items[np.argsort(-ne, kind="stable")].astype(np.int32).reshape(-1, 5))
+        first = np.cumsum(nit) - nit
+        self.merges = np.ascontiguousarray(
+            np.stack([crows[many], scratch[first[many]], nit[many]],
+                     axis=1).astype(np.int32).reshape(-1, 3))
+        self.n_scratch = int(multi.sum())
         self.max_blk = int(self.ent.max() >> 5) if len(self.ent) else -1
         self._dev = {}
+
+    def structure(self):
+        """The counts of the kernel's work split: rows a warp takes, rows
+        a CTA takes, their items, driving entries against all entries,
+        rows with an empty slot, rows whose items merge their lists."""
+        return {"warp_rows": len(self.wrows), "cta_rows": self.n_rows - len(self.wrows),
+                "items": len(self.items), "drive_entries": int(self.rows[:, 4].sum()),
+                "entries": len(self.ent), "empty_rows": int(self.empty.sum()),
+                "merged_rows": len(self.merges)}
 
     def upload(self, device):
         """The tables of the form `device` runs (CPU: plain, else the
@@ -193,12 +257,13 @@ class JoinLayout:
         return self._dev[key]
 
     def tables(self, device):
-        """(ent, rows, qw, items, merges) on `device`: the kernel's."""
+        """(ent, rows, qw, items, wrows, merges) on `device`: the
+        kernel's."""
         key = ("kernel", str(device))
         if key not in self._dev:
             put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
             self._dev[key] = tuple(put(a) for a in (self.ent, self.rows, self.qw, self.items,
-                                                    self.merges))
+                                                    self.wrows, self.merges))
         return self._dev[key]
 
 
@@ -206,11 +271,9 @@ def join_part(docs32, w32, layout, num_docs, fetch16, fscale, _stage=STAGE):
     """The join and pack of a part: (layout.n_rows, layout.width) f16
     (fetch16: the values times fscale, rounded to nearest) or f32. CPU
     tensors take join_part_torch over the layout's plain form; CUDA
-    tensors launch csrc/join.cu over its kernel form, once, and once more
-    where a row spans several CTAs (each launch counted in
-    join_part.launches), or raise. _stage: rows of more entries than this
-    are searched in device memory (the card tests lower it to reach that
-    path)."""
+    tensors launch csrc/join.cu over its kernel form once (counted in
+    join_part.launches), or raise. Test hook: _stage, rows of more
+    entries than this are searched in device memory."""
     k, ops, tmax = layout.k, layout.ops, layout.tmax
     if docs32.device.type == "cpu":
         return join_part_torch(docs32, w32, *layout.plain(docs32.device), num_docs, k, ops, tmax,
@@ -236,25 +299,29 @@ def join_part(docs32, w32, layout, num_docs, fetch16, fscale, _stage=STAGE):
                          f"{docs32.shape[0]} rows")
     if fetch16 and fscale is None:
         raise ValueError("fetch16 needs fscale")
-    ent, rows, qw, items, merges = layout.tables(dev)
+    ent, rows, qw, items, wrows, merges = layout.tables(dev)
     out = torch.empty((layout.n_rows, layout.width),
                       dtype=torch.float16 if fetch16 else torch.float32, device=dev)
-    if not len(layout.items):
+    if not layout.n_rows:
         return out
     sc_vals = torch.empty((max(layout.n_scratch, 1), max(layout.n_ranked, 1), k),
                           dtype=torch.float32, device=dev)
     sc_cnt = torch.empty((max(layout.n_scratch, 1), 2), dtype=torch.int32, device=dev)
+    # the merged rows' arrival counts, this launch's own (zeroed by the
+    # entry point on the launch's stream)
+    mcount = torch.empty(max(len(layout.merges), 1), dtype=torch.int32, device=dev)
     opbits = sum(bit for op, bit in _OP_BITS.items() if op in ops)
     lib = kernels.lib("join")
     rc = lib.ds2i_join_part(
         docs32.data_ptr(), w32.data_ptr(), ent.data_ptr(), rows.data_ptr(), qw.data_ptr(),
-        items.data_ptr(), len(layout.items), merges.data_ptr(), len(layout.merges),
-        int(num_docs), int(k), opbits, int(tmax), int(_stage), int(bool(fetch16)),
-        float(fscale) if fetch16 else 1.0, out.data_ptr(), sc_vals.data_ptr(),
-        sc_cnt.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        items.data_ptr(), len(layout.items), wrows.data_ptr(), len(layout.wrows),
+        merges.data_ptr(), mcount.data_ptr(), len(layout.merges), int(num_docs), int(k), opbits,
+        int(tmax), int(_stage), int(bool(fetch16)), float(fscale) if fetch16 else 1.0,
+        out.data_ptr(), sc_vals.data_ptr(), sc_cnt.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     kernels.check(lib, rc, "join launch")
-    join_part.launches += 1 + (len(layout.merges) > 0)
+    join_part.launches += 1
     return out
 
 

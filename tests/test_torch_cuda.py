@@ -31,6 +31,7 @@ from ds2i_torch.ops.block_decode import (
 from ds2i_torch.ops.pair_decode import (
     decode_pair, decode_pair_launch_torch, pair_decode_part, pair_decode_part_torch,
 )
+from torch_join_rows import KINDS, bucket_layout, bucket_of, special_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -394,11 +395,11 @@ def _assert_join_equal(got, exp):
 def test_join_kernel_matches_plain_on_every_part(cuda, coll, name, which):
     """K3 (join_part, csrc/join.cu) on every part of the plan and of its
     probe sub-plans (f32) against join_part_torch on the card, byte for
-    byte, with at most 2 counted launches a part; the same parts with
-    every row searched in device memory (_stage=0), with one entry a CTA
-    (every multi-entry row merged by the second launch) and, where the
-    plan downloads f16, in f32 too. Queries here reach 32 terms (tmax 32)
-    and k 128."""
+    byte, with one counted launch a part (at most 2); the same parts with
+    every row searched in device memory (_stage=0), with CTA items of one
+    driving entry (every row of more than a warp takes merging its items'
+    lists in the launch) and, where the plan downloads f16, in f32 too.
+    Queries here reach 32 terms (tmax 32) and k 128."""
     from ds2i_torch.ops.join import JoinLayout, join_part, join_part_torch
 
     wdata = WandData.build(read_sizes(coll), BinaryFreqCollection(coll))
@@ -430,10 +431,69 @@ def test_join_kernel_matches_plain_on_every_part(cuda, coll, name, which):
                         got = join_part(docs32, w32, layout, nd, fetch16, fscale, _stage=stage)
                         torch.cuda.synchronize()
                         n = join_part.launches - before
-                        assert n == 1 + (len(layout.merges) > 0) and n <= 2
+                        assert n == 1
                         _assert_join_equal(got, exp)
                 parts += 1
     assert parts >= 4
+
+
+# the kernel's paths over seeded rows: (chunk, _stage) of the kernel's own
+# split, CTA items of one driving entry (every row of more than a warp
+# takes merged by the last item to finish), items of three, and every row
+# searched in device memory
+JOIN_SPLITS = {
+    "own": (None, 2048),
+    "merged": (1, 2048),
+    "items_of_3": (3, 2048),
+    "device_memory": (None, 0),
+}
+JOIN_FORMS = {"and-10": (("and",), 10), "general-10": (("counts", "or", "and"), 10),
+              "and-128": (("and",), 128), "general-128": (("counts", "or", "and"), 128)}
+
+
+@pytest.mark.parametrize("form", list(JOIN_FORMS))
+@pytest.mark.parametrize("kind", KINDS)
+def test_join_kernel_on_seeded_rows(cuda, kind, form):
+    """K3 on seeded rows of each kind the kernel treats apart (single-term
+    rows, the shortest slot on top, empty slots, pads inside a slot's run,
+    ties, 17-32 slots, rows longer than a CTA item), in the AND-only and
+    the general form at k 10 (register top-k) and 128 (compacted
+    candidates), under every split of JOIN_SPLITS: byte for byte against
+    join_part_torch on the card (f32, and f16 on the kernel's own split),
+    one launch (the long rows' merges in it), and each split reaching the path it is
+    for."""
+    from ds2i_torch.ops.join import CHUNK, WARP_DRIVE, WARP_K, join_part, join_part_torch
+
+    ops, k = JOIN_FORMS[form]
+    rng = np.random.RandomState(KINDS.index(kind) * 100 + k)
+    rows, nd, equal = special_rows(kind, rng)
+    tmax = 2
+    while tmax < max(len(r) for r in rows):
+        tmax *= 2
+    docs, w, bdir, qwtab, tgt, row_ents = bucket_of(rows, tmax, nd, rng, equal)
+    docs32 = torch.from_numpy(docs).to(cuda)
+    w32 = torch.from_numpy(w).to(cuda)
+    for split, (chunk, stage) in JOIN_SPLITS.items():
+        lay = bucket_layout(bdir, qwtab, tgt, row_ents, k, ops, tmax, chunk=chunk or CHUNK)
+        st = lay.structure()
+        nd_cta = np.delete(lay.rows[:, 4], lay.wrows)  # the CTA rows' driving entries
+        assert st["merged_rows"] == int((nd_cta > (chunk or CHUNK)).sum())
+        if k <= WARP_K:  # the short rows on warps, the others on CTA items
+            assert np.all(lay.rows[lay.wrows, 4] <= WARP_DRIVE)
+            assert st["warp_rows"] > 0 or ops != ("and",)
+        else:
+            assert st["warp_rows"] == 0
+        if kind == "long":  # rows longer than a warp takes, on CTA items
+            assert st["cta_rows"] > 0
+        for fetch16 in (False, True) if split == "own" else (False,):
+            fscale = 4.0 if fetch16 else None
+            exp = join_part_torch(docs32, w32, *lay.plain(cuda), nd, k, ops, tmax, fetch16,
+                                  fscale)
+            before = join_part.launches
+            got = join_part(docs32, w32, lay, nd, fetch16, fscale, _stage=stage)
+            torch.cuda.synchronize()
+            assert join_part.launches - before == 1
+            _assert_join_equal(got, exp)
 
 
 def test_join_engine_on_cuda_equals_engine_on_cpu(cuda, coll):
