@@ -45,7 +45,8 @@ index in pair mode, then over a `block_optpfor` index in split mode
   kernel timed beside its bound), the slice phase (launches a pass: at
   most 2 a part per kernel), the part phase (every part of the slice's
   plan against the plain version; each kernel's launches of one pass
-  timed) and the oracle phase
+  timed; for a kernel first timed on the path, the chain line: the same
+  launches cut to their first CTA, timed alone) and the oracle phase
   block_optpfor and_skip path (bench.py's default: block-max pruned
   ranked_and; kernels blockmax, optpfor_decode and interp_decode):
   8. every count set to 0, then build_blockmax over the collection
@@ -707,15 +708,20 @@ def block_kernel_phase(eng, index, tag, timed):
     return entries, code_words
 
 
-def part_kernel_phase(eng, plan, code_words, tag):
+def part_kernel_phase(eng, plan, code_words, tag, chain=()):
     """Over every part of the slice's plan: split_decode_part on the card
     against split_decode_part_torch, bit for bit; then each block
     kernel's launches of one ranked pass (freqs and BM25 docs, every
-    part), timed through the wrappers and alone, beside their bound."""
+    part), timed through the wrappers and alone, beside their bound. For
+    the kernels in `chain` also the chain line: the same launches, each
+    cut to its first CTA (a Launch of launch.host[:1]), timed alone; where
+    one CTA takes most of a full launch's time, one row's latency (its
+    dependent reads and the instructions between them), not the launch's
+    bytes, sets the kernel's time."""
     import torch
 
     from ds2i_torch.ops.block_decode import (
-        KERNELS, WRAPPERS, split_decode_part, split_decode_part_torch,
+        KERNELS, WRAPPERS, Launch, split_decode_part, split_decode_part_torch,
     )
 
     s, dev, nd = eng.state, eng.device, eng.num_docs
@@ -742,11 +748,13 @@ def part_kernel_phase(eng, plan, code_words, tag):
     for kernel in KERNELS:
         wrapper = WRAPPERS[kernel]
 
-        def run():
+        def run(first_cta=False):
             for _, gt, gf, bp, lay, freq, docs, w in parts:
                 for mode in ("freqs", "bm25"):
                     is_docs = mode == "bm25"
                     launch = lay.launch(kernel, is_docs, dev)
+                    if first_cta and launch.n_cta:
+                        launch = Launch(kernel, launch.host[:1], launch.dev[:1])
                     if launch.n_cta:
                         wrapper(launch, s.docs_words, s.tiles_docs if is_docs else s.tiles_freqs,
                                 gt if is_docs else gf, mode, nd, docs if is_docs else freq,
@@ -766,6 +774,15 @@ def part_kernel_phase(eng, plan, code_words, tag):
         log(f"{tag} part phase: {wrapper.__name__}: one ranked pass, {n} launches: {ms:.4f} ms "
             f"through the wrapper, {fmt_ms(dev_ms)} alone (median of 5); bound {bound_ms:.4f} ms "
             f"by {bound_by} ({nbytes} bytes)")
+        if kernel in chain:
+            cta_ms = device_only_ms(lambda: run(first_cta=True))
+            ctas = [lay.launch(kernel, d, dev).n_cta for _, _, _, _, lay, _, _, _ in parts
+                    for d in (True, False)]
+            share = "not measured" if None in (cta_ms, dev_ms) else f"{cta_ms / dev_ms:.3f}"
+            log(f"{tag} part phase: {wrapper.__name__} chain: the pass's {n} launches "
+                f"({sum(ctas)} CTAs, {max(ctas)} in the largest) {fmt_ms(dev_ms)} alone; the same "
+                f"launches cut to their first CTA {fmt_ms(cta_ms)} alone (median of 5); one CTA's "
+                f"share of a full launch {share}")
 
 
 def join_bytes(p):
@@ -1205,7 +1222,9 @@ def block_path(index, wdata, queries, entries, tag, join_entry=None):
     kernels not yet in `entries` timed, and their JSON entries added
     there), the 35k-query exhaustive slice (launch counts set to 0 just
     before it; an entry takes its kernel's count from the first path that
-    times it), the part phase and the 300-query oracle. Returns the
+    times it), the part phase (the chain line for the kernels timed
+    here: K1 and K2 on block_optpfor, K7 on block_varint, K8 on
+    block_qmx) and the 300-query oracle. Returns the
     engine, the plan, the last pass's results and the decode wrappers the
     path launched. join_entry: K3's JSON entry, timed on this path."""
     from ds2i_torch.ops import block_decode
@@ -1220,7 +1239,8 @@ def block_path(index, wdata, queries, entries, tag, join_entry=None):
     entry_of = {e["name"]: e for e in new}
     plan, res = main_path(eng, queries, [(entry_of.get(w.__name__), w) for w in wrappers], tag,
                           join_entry=join_entry)
-    part_kernel_phase(eng, plan, code_words, tag)
+    part_kernel_phase(eng, plan, code_words, tag,
+                      chain={e["name"].split("_")[0] for e in new})
     oracle_phase(eng, index, wdata, queries, ORACLE_QUERIES, tag)
     return eng, plan, res, wrappers
 

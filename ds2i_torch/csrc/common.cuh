@@ -82,7 +82,7 @@ __device__ __forceinline__ uint32_t warp_inclusive_scan(uint32_t x, int lane) {
   return x;
 }
 
-// the tail of a full-block row, one warp a row (K1, K7, K8): lane l holds
+// the tail of a full-block row, one warp a row (K1): lane l holds
 // v[it], the raw value of slot it * 32 + l (a gap for docs, freq - 1 for
 // freqs), and the warp writes the row's four 32-slot blocks from blk0 —
 //   freqs   v + 1, slots >= nvals 0;
@@ -123,6 +123,78 @@ __device__ __forceinline__ void write_full_block_row(
       w_out[(blk0 + it) * 32 + lane] = slot_weight(mode, doc, num_docs, fv, den);
     }
   }
+}
+
+// whether p lies off a 16-byte boundary (NULL does not)
+__host__ __device__ inline bool misaligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+}
+
+// The tail of a full-block row with its loads made ahead (K7, K8): lane
+// l holds v[k], the raw value of slot 4 l + k (k < 4: four consecutive
+// slots, column 4 (l & 7) of the row's block l >> 3), and moves 16-byte
+// vectors; the warp writes the row's four 32-slot blocks from blk0 as
+// write_full_block_row does, slot for slot and bit for bit. Every pointer
+// it reads or writes by vector lies on a 16-byte boundary (the wrappers
+// check).
+//
+// prefetch_row_tail issues the tail's loads that do not depend on the
+// decoded values, right after the row's CTA entry and map entry, so that
+// they overlap the decode: in mode kDocsBm25 the raw freqs of the lane's
+// four slots (row blkperm[blk0 + (l >> 3)] of freq, which needs only the
+// CTA entry) and their dens (row tile_gblk0[tile] + (l >> 3) of
+// den_blocks); nothing in the other modes. They stay in registers.
+struct RowTail {
+  int4 f;
+  float4 den;
+};
+
+__device__ __forceinline__ RowTail prefetch_row_tail(
+    int mode, int lane, long long blk0, long long tile, const int* __restrict__ freq,
+    const long long* __restrict__ blkperm, const float* __restrict__ den_blocks,
+    const long long* __restrict__ tile_gblk0) {
+  RowTail t = {};
+  if (mode != kDocsBm25) return t;
+  const int col = 4 * (lane & 7);
+  const long long fblk = __ldg(blkperm + blk0 + (lane >> 3));
+  const long long dblk = __ldg(tile_gblk0 + tile) + (lane >> 3);
+  t.f = __ldg(reinterpret_cast<const int4*>(freq + fblk * 32 + col));
+  t.den = __ldg(reinterpret_cast<const float4*>(den_blocks + dblk * 32 + col));
+  return t;
+}
+
+// write_full_block_row's slots from v and the prefetched tail, the row's
+// F_BASE field passed by value: freqs v + 1 (0 past nvals); docs base - 1
+// + the inclusive prefix sum of v + 1 (the lane's four, then one warp
+// scan of the lanes' sums; uint32, wrapping as the JAX engine's int32
+// does), num_docs past nvals; weights slot_weight with the same
+// __int2float_rn, __fadd_rn and __fdiv_rn.
+__device__ __forceinline__ void write_prefetched_block_row(
+    const uint32_t (&v)[4], int lane, int mode, int num_docs, int nvals, int base,
+    long long blk0, int* __restrict__ out, float* __restrict__ w_out, const RowTail& tail) {
+  const long long at = (blk0 + (lane >> 3)) * 32 + 4 * (lane & 7);
+  const int j = 4 * lane;  // the lane's first slot
+  if (mode == kFreqs) {
+    *reinterpret_cast<int4*>(out + at) = make_int4(
+        j < nvals ? static_cast<int>(v[0] + 1u) : 0, j + 1 < nvals ? static_cast<int>(v[1] + 1u) : 0,
+        j + 2 < nvals ? static_cast<int>(v[2] + 1u) : 0, j + 3 < nvals ? static_cast<int>(v[3] + 1u) : 0);
+    return;
+  }
+  const uint32_t s0 = v[0] + 1u, s1 = s0 + v[1] + 1u, s2 = s1 + v[2] + 1u, s3 = s2 + v[3] + 1u;
+  const uint32_t before = static_cast<uint32_t>(base) - 1u + warp_inclusive_scan(s3, lane) - s3;
+  const int d0 = j < nvals ? static_cast<int>(before + s0) : num_docs;
+  const int d1 = j + 1 < nvals ? static_cast<int>(before + s1) : num_docs;
+  const int d2 = j + 2 < nvals ? static_cast<int>(before + s2) : num_docs;
+  const int d3 = j + 3 < nvals ? static_cast<int>(before + s3) : num_docs;
+  *reinterpret_cast<int4*>(out + at) = make_int4(d0, d1, d2, d3);
+  if (mode == kDocs) return;
+  const bool bm25 = mode == kDocsBm25;
+  auto weight = [&](int doc, int f, float den) {
+    return slot_weight(mode, doc, num_docs, bm25 ? __int2float_rn(f) : 0.0f, bm25 ? den : 0.0f);
+  };
+  *reinterpret_cast<float4*>(w_out + at) = make_float4(
+      weight(d0, tail.f.x, tail.den.x), weight(d1, tail.f.y, tail.den.y),
+      weight(d2, tail.f.z, tail.den.z), weight(d3, tail.f.w, tail.den.w));
 }
 
 }  // namespace ds2i

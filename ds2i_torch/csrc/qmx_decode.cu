@@ -27,27 +27,56 @@
 //              | bits_b << width_a from the payload; type 0 gives 1; a type
 //              past the table clamps to its last class, as XLA's gather.
 // Word indices are clamped to the stream. Then the full-block tail
-// (common.cuh write_full_block_row). Every slot equals
+// (common.cuh write_prefetched_block_row). Every slot equals
 // ds2i_torch/ops/block_decode.py:split_decode_part_torch bit for bit.
 //
 // The lane table (ops/block_decode.py:qmx_lane_words, built from
 // codecs/qmx.py) is an int32 array uploaded once per device: word 256 t +
 // j packs LANE_TABLE[t, j] a byte a field, word 256 * 15 + t packs
-// INTS_OF_TYPE[t] | ADV_OF_TYPE[t] << 16. 15 KB, read through __ldg.
+// INTS_OF_TYPE[t] | ADV_OF_TYPE[t] << 16. 15 KB, read through __ldg; each
+// warp copies only the 15 meta words into shared memory.
 //
-// What bounds it on this card: memory, and the launch. A row reads its
-// payload (16 bytes an instance, 32 for the two-word classes; 150-500
-// bytes for 128 values), its selectors, 28 bytes of fields and (ranked
-// docs) 512 bytes each of freqs and den rows, and writes 512 bytes (1,024
-// with w). Design: one warp per row, kWarps rows per CTA, every CTA inside
-// one group. NI and S are at most 32, so lane s reads selector s and lane
-// i owns instance i: a warp scan of the batches gives the coverage ends,
-// a 5-step search over them gives each instance its type, and two warp
-// scans give the output and payload bases, kept in shared memory. The
-// payload (at most 32 x 32 bytes) is staged with cp.async. Lane l then
-// decodes slots l, l + 32, l + 64 and l + 96: a 5-step search over the
-// output bases, one lane-table word, two extracts from the staged
-// payload. No TMA (rows are unaligned and under 1 KB), no wgmma.
+// What bounds it on this card: the latency of each row's work and the
+// launches, not its bytes. A ranked pass launches K8 14 times (a freqs and
+// a docs launch a part) of about 500 CTAs each, under one wave, for about
+// 5.5 MB each (a row reads its payload, 150-500 bytes for 128 values, its
+// selectors, 32 bytes of fields, and for BM25 weights 512 bytes each of
+// freqs and den rows; it writes 512 bytes, 1,024 with w): 1.6 us of bytes
+// a launch. The first design took 10 us a launch, and the same launches
+// cut to their first CTA 61% of that (chip_smoke.py's chain line on an
+// H100 at 700 W): one warp's chain, nine reads in series (CTA entry, map
+// entry, fields, selectors, meta word, payload, lane table, then blkperm
+// and tile_gblk0, then freq and den) and the instructions between them,
+// sets the time. Timed cut-down copies showed the decode's instructions
+// and the tail as large as the reads, so the design cuts both.
+//
+// Design: one warp per row, kWarps rows per CTA, every CTA inside one
+// group. Each row's dependent reads are cut to four rounds before its
+// decode: (1) the CTA entry; (2) the map entry gtile[row], the blkperm
+// entry of the lane's block (it needs only the CTA entry) and a cp.async
+// of the lane table's meta words; (3) the fields, tile_gblk0[tile] and the
+// lane's four freqs (common.cuh prefetch_row_tail, kept in registers); (4)
+// one cp.async round for the block's words from the payload's first word
+// through the word after its last selector byte (the reference format puts
+// the selectors right after the payload; at most stage_words(NI, S) words,
+// 1,064 bytes), and the lane's four dens. After the one wait the decode
+// keeps to registers, shuffles and the stage: NI and S are at most 32, so
+// lane s reads selector s and lane i owns instance i; a warp scan of the
+// batches gives the coverage ends, and instance i's selector is the count
+// of ends at or below i (one __reduce_or_sync of a bit a selector, one
+// __popc); two warp scans give the instances' first outputs and payload
+// bytes. Lane l decodes slots 4 l .. 4 l + 3, which share one instance
+// (every class holds a multiple of 4 values): the count of instance starts
+// at or below quad l (again a mask and a __popc), its type, first output
+// and payload byte by shuffle, one 16-byte read of four lane entries (the
+// one dependent global read left, an L1 or L2 hit), two extracts a slot
+// from the stage, unchecked where the lane's reach lies inside it (every
+// well formed block); a word outside the stage (a bucketed NI past ninst,
+// a malformed block) is read from the stream, clamped as the stage is. The
+// tail writes the lane's four slots as one 16-byte vector a plane after
+// one warp scan (common.cuh write_prefetched_block_row). No TMA: rows
+// start at any byte and move under 1.1 KB, below what a bulk copy's
+// 16-byte alignment and setup repay. No wgmma: there is no matrix product.
 
 #include "common.cuh"
 
@@ -63,7 +92,13 @@ constexpr int kMaxNI = 32;    // instances a block reads at most (block_tiles._N
 constexpr int kMaxS = 32;     // selectors a block reads at most (block_tiles._S_BUCKETS)
 constexpr int kTypes = 15;    // width classes (codecs/qmx.py)
 constexpr int kLanes = 256;   // lane entries a class
-constexpr int kPayStage = (24 + 8 * 32 * kMaxNI) / 32 + 2;  // payload words staged: 258
+
+// words staged from the payload's first word: a block of NI instances
+// (at most 32 payload bytes each) and S selectors, from byte 0..3 of its
+// first word, spans at most stage_words(NI, S) words through the word
+// after its last selector byte (the one extract's high half may read)
+__host__ __device__ constexpr int stage_words(int ni, int s) { return (2 + 32 * ni + s) / 4 + 2; }
+constexpr int kStage = stage_words(kMaxNI, kMaxS);  // 266
 
 using ds2i::cp_async_wait_all;
 using ds2i::cp_async_word;
@@ -78,12 +113,8 @@ qmx_part_kernel(const uint32_t* __restrict__ words, long long nw,
                 const float* __restrict__ den_blocks,
                 const long long* __restrict__ tile_gblk0,
                 const uint32_t* __restrict__ lane_tab) {
-  __shared__ uint32_t s_pay[kWarps][kPayStage];
-  __shared__ int s_cover[kWarps][kMaxS];  // selector s covers instances [cover[s-1], cover[s])
-  __shared__ int s_stype[kWarps][kMaxS];
-  __shared__ int s_base[kWarps][kMaxNI];  // instance i: first output slot
-  __shared__ int s_pbyte[kWarps][kMaxNI];  // instance i: first payload byte
-  __shared__ int s_itype[kWarps][kMaxNI];
+  __shared__ uint32_t s_blk[kWarps][kStage];  // payload then selectors, from BF_W0
+  __shared__ uint32_t s_meta[kWarps][kTypes + 1];  // INTS_OF_TYPE | ADV_OF_TYPE << 16
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int* cta = table + static_cast<size_t>(blockIdx.x) * ds2i::kCtaFields;
@@ -92,8 +123,14 @@ qmx_part_kernel(const uint32_t* __restrict__ words, long long nw,
   const int S = max(0, min(cta[ds2i::kCtaP2], kMaxS));
   const long long row = static_cast<long long>(cta[ds2i::kCtaRow0]) + warp;
   const long long blk0 = static_cast<long long>(cta[ds2i::kCtaBlk0]) + static_cast<long long>(warp) * kSteps;
-  const long long tile = gtile[row];
 
+  // step 2 of the chain: the row's map entry, the tail's blkperm entries
+  // and the lane table's meta words, all at once; step 3: its fields, its
+  // tile_gblk0 entry and freqs
+  if (lane < kTypes) ds2i::cp_async_4(&s_meta[warp][lane], lane_tab + kTypes * kLanes + lane);
+  const long long tile = gtile[row];
+  const ds2i::RowTail tail = ds2i::prefetch_row_tail(mode, lane, blk0, tile, freq, blkperm,
+                                                     den_blocks, tile_gblk0);
   const int* f = fld + static_cast<size_t>(tile) * N_FIELDS;
   const long long pay_w0 = f[BF_W0];
   const long long pay_boff = f[BF_BOFF];
@@ -101,86 +138,106 @@ qmx_part_kernel(const uint32_t* __restrict__ words, long long nw,
   const int nsel = f[BF_NEX];
   const long long sel_w0 = f[BF_EX_W0];
   const int sel_b = f[BF_EX_BOFF];
+  const int base = f[F_BASE];
   const int nvals = f[F_NVALS];
+
+  // step 4: the block's words, payload through the word after its last
+  // selector byte, in one cp.async round (clamped to the stream as
+  // load_word clamps; capped by the group's NI and S)
+  const int nstage = static_cast<int>(
+      max(0LL, min(static_cast<long long>(stage_words(NI, S)), sel_w0 - pay_w0 + 2)));
+  for (int k = lane; k < nstage; k += 32) cp_async_word(&s_blk[warp][k], words, nw, pay_w0 + k);
+  cp_async_wait_all();
+  __syncwarp();
+
+  // word pay_w0 + k of the stream, clamped: staged, or read from the
+  // stream where a bucketed NI past ninst or a malformed block reads
+  // outside the block
+  auto word_at = [&](long long k) -> uint32_t {
+    return k >= 0 && k < nstage ? s_blk[warp][k] : load_word(words, nw, pay_w0 + k);
+  };
 
   // lane s: selector s, walking back from the block's last byte
   int stype = 0, batch = 0;
   if (lane < S && lane < nsel) {
     const int bk = sel_b - lane;
-    const uint32_t wsel = load_word(words, nw, sel_w0 + (bk >> 2));
+    const uint32_t wsel = word_at(sel_w0 - pay_w0 + (bk >> 2));
     const uint32_t sel = (wsel >> ((bk & 3) * 8)) & 0xFFu;
     stype = static_cast<int>(sel >> 4);
     batch = 16 - static_cast<int>(sel & 15u);
   }
-  const int cover = static_cast<int>(ds2i::warp_inclusive_scan(static_cast<uint32_t>(batch), lane));
-  s_cover[warp][lane] = cover;
-  s_stype[warp][lane] = stype;
-  __syncwarp();
+  // selector s covers instances [cover[s-1], cover[s]); the covers of the
+  // min(S, nsel) read selectors rise (a batch is 1..16), so instance i's
+  // selector, the first s < S with cover[s] > i, is the count of covers
+  // at or below i: bit cover[s] of one warp-wide mask
+  constexpr unsigned kFull = 0xFFFFFFFFu;
+  const uint32_t cover = ds2i::warp_inclusive_scan(static_cast<uint32_t>(batch), lane);
+  const uint32_t cover_bits =
+      __reduce_or_sync(kFull, batch > 0 && cover < 32 ? 1u << cover : 0u);
+  const int sel_of = __popc(cover_bits & ((2u << lane) - 1u));
 
-  // lane i: instance i's type (the selector s with cover[s-1] <= i <
-  // cover[s], the first s < S with cover[s] > i), outputs and payload bytes
-  int itype = 0;
-  if (lane < NI) {
-    int lo = 0, hi = S;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (s_cover[warp][mid] <= lane) lo = mid + 1; else hi = mid;
-    }
-    if (lo < S) itype = s_stype[warp][lo];
-  }
+  // lane i: instance i's type, outputs and payload bytes, and exclusive
+  // scans of the last two for its first output and payload byte
+  const int stype_of = __shfl_sync(kFull, stype, sel_of & 31);
+  const int itype = lane < NI && sel_of < S ? stype_of : 0;
   const bool ivalid = lane < NI && lane < ninst;
-  const uint32_t meta = ivalid ? __ldg(lane_tab + kTypes * kLanes + min(itype, kTypes - 1)) : 0u;
+  const uint32_t meta = ivalid ? s_meta[warp][min(itype, kTypes - 1)] : 0u;
   const uint32_t ints = meta & 0xFFFFu, adv = meta >> 16;
-  const uint32_t ints_incl = ds2i::warp_inclusive_scan(ints, lane);
-  const uint32_t adv_incl = ds2i::warp_inclusive_scan(adv, lane);
-  const uint32_t pay_bytes = __shfl_sync(0xFFFFFFFFu, adv_incl, 31);
-  if (lane < NI) {
-    s_base[warp][lane] = static_cast<int>(ints_incl - ints);
-    s_pbyte[warp][lane] = static_cast<int>(adv_incl - adv);
-    s_itype[warp][lane] = itype;
-  }
+  const uint32_t ibase = ds2i::warp_inclusive_scan(ints, lane) - ints;
+  const uint32_t ipbyte = ds2i::warp_inclusive_scan(adv, lane) - adv;
 
-  // the payload words its instances span, clamped to the stream
-  const long long pay_end = (pay_boff + 8LL * pay_bytes) >> 5;
-  const int nstage = static_cast<int>(min(static_cast<long long>(kPayStage), pay_end + 2));
-  for (int k = lane; k < nstage; k += 32) cp_async_word(&s_pay[warp][k], words, nw, pay_w0 + k);
-  cp_async_wait_all();
-  __syncwarp();
-
-  // `width` bits at bit `bitoff` of the payload (all 32 bits for 32)
-  auto extract = [&](long long bitoff, int width) -> uint32_t {
+  // `width` bits at bit `bitoff` of the payload (all 32 bits for 32);
+  // `staged`: the caller knows both words lie in the stage
+  auto extract = [&](long long bitoff, int width, bool staged) -> uint32_t {
     const long long k = bitoff >> 5;
     const uint32_t sh = static_cast<uint32_t>(bitoff & 31);
-    const uint32_t lo = k >= 0 && k < nstage ? s_pay[warp][k] : load_word(words, nw, pay_w0 + k);
-    const uint32_t hi = k + 1 >= 0 && k + 1 < nstage ? s_pay[warp][k + 1]
-                                                     : load_word(words, nw, pay_w0 + k + 1);
+    const uint32_t lo = staged ? s_blk[warp][k] : word_at(k);
+    const uint32_t hi = staged ? s_blk[warp][k + 1] : word_at(k + 1);
     const uint32_t x = (lo >> sh) | (sh > 0 ? hi << (32u - sh) : 0u);
     return width >= 32 ? x : x & ((1u << width) - 1u);
   };
 
-  const int nvalid = max(0, min(ninst, NI));
+  // lane l decodes slots 4 l .. 4 l + 3. Every class's INTS_OF_TYPE is a
+  // multiple of 4, so the first outputs of the valid instances are too and
+  // rise, the four slots share one instance (the valid instances whose
+  // first output is at or before slot 4 l, minus one, clipped at 0: the
+  // count of set bits at or below l of a mask of first outputs / 4) and
+  // read four consecutive lane entries: one 16-byte read of the table, or
+  // four clamped ones where they pass its 256th entry
+  const uint32_t start_bits =
+      __reduce_or_sync(kFull, ivalid && ibase < kT ? 1u << (ibase >> 2) : 0u);
+  const int inst = max(__popc(start_bits & ((2u << lane) - 1u)) - 1, 0);
+  const int type = __shfl_sync(kFull, itype, inst);
+  const int j = 4 * lane - static_cast<int>(__shfl_sync(kFull, ibase, inst));
+  const uint32_t* row_tab = lane_tab + min(type, kTypes - 1) * kLanes;
+  uint32_t e[kSteps];
+  if (j + 3 < kLanes) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(row_tab + j));
+    e[0] = q.x, e[1] = q.y, e[2] = q.z, e[3] = q.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kSteps; ++k) e[k] = __ldg(row_tab + min(j + k, kLanes - 1));
+  }
+  // the lane's extracts start at most `reach` bits past its instance's
+  // first bit; where they and the words after them lie in the stage (every
+  // well formed block) they read it unchecked
+  const long long bits = pay_boff + 8LL * __shfl_sync(kFull, ipbyte, inst);
+  int reach = 0;
+#pragma unroll
+  for (int k = 0; k < kSteps; ++k) {
+    reach = max(reach, static_cast<int>(e[k] & 0xFF));
+    if (e[k] >> 24) reach = max(reach, static_cast<int>((e[k] >> 16) & 0xFF));
+  }
+  const bool staged = bits >= 0 && ((bits + reach) >> 5) + 1 < nstage;
   uint32_t v[kSteps];
 #pragma unroll
-  for (int it = 0; it < kSteps; ++it) {
-    const int slot = it * 32 + lane;
-    // valid instances whose first output is at or before the slot
-    int lo = 0, hi = nvalid;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (s_base[warp][mid] <= slot) lo = mid + 1; else hi = mid;
-    }
-    const int inst = lo - 1 < 0 ? 0 : lo - 1;
-    const int type = s_itype[warp][inst];
-    const int j = min(max(slot - s_base[warp][inst], 0), kLanes - 1);
-    const uint32_t e = __ldg(lane_tab + min(type, kTypes - 1) * kLanes + j);
-    const int ba = e & 0xFF, wa = (e >> 8) & 0xFF, bb = (e >> 16) & 0xFF, wb = e >> 24;
-    const long long bits = pay_boff + 8LL * s_pbyte[warp][inst];
-    uint32_t x = extract(bits + ba, wa);
-    if (wb > 0) x |= extract(bits + bb, wb) << min(wa, 31);
-    v[it] = type == 0 ? 1u : x;
+  for (int k = 0; k < kSteps; ++k) {
+    const int ba = e[k] & 0xFF, wa = (e[k] >> 8) & 0xFF, bb = (e[k] >> 16) & 0xFF, wb = e[k] >> 24;
+    uint32_t x = extract(bits + ba, wa, staged);
+    if (wb > 0) x |= extract(bits + bb, wb, staged) << min(wa, 31);
+    v[k] = type == 0 ? 1u : x;
   }
-  ds2i::write_full_block_row(v, lane, mode, num_docs, nvals, f + F_BASE, blk0, tile, out, w_out,
-                             freq, blkperm, den_blocks, tile_gblk0);
+  ds2i::write_prefetched_block_row(v, lane, mode, num_docs, nvals, base, blk0, out, w_out, tail);
 }
 
 }  // namespace
@@ -202,6 +259,10 @@ extern "C" int ds2i_qmx_decode_part(
       (mode == ds2i::kDocsBm25 && (freq == nullptr || blkperm == nullptr ||
                                    den_blocks == nullptr || tile_gblk0 == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (ds2i::misaligned16(out) || ds2i::misaligned16(w) || ds2i::misaligned16(freq) ||
+      ds2i::misaligned16(den_blocks) || ds2i::misaligned16(lane_tab)) {
+    return static_cast<int>(cudaErrorMisalignedAddress);  // the 16-byte vectors of the tail
   }
   if (n_cta == 0) return static_cast<int>(cudaGetLastError());
   qmx_part_kernel<<<n_cta, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -699,6 +699,8 @@ def qmx_lane_words():
     tab = LANE_TABLE.astype(np.uint32)
     if tab.max() > 255 or max(INTS_OF_TYPE) > 0xFFFF:
         raise ValueError("the QMX lane table's fields do not fit their bytes")
+    if any(n <= 0 or n % 4 for n in INTS_OF_TYPE):  # a kernel lane's 4 slots share one instance
+        raise ValueError("csrc/qmx_decode.cu needs every INTS_OF_TYPE a positive multiple of 4")
     lane = tab[..., 0] | tab[..., 1] << 8 | tab[..., 2] << 16 | tab[..., 3] << 24
     meta = np.asarray(INTS_OF_TYPE, np.uint32) | np.asarray(ADV_OF_TYPE, np.uint32) << 16
     return np.concatenate([lane.reshape(-1), meta]).view(np.int32)

@@ -1,23 +1,26 @@
 """A torch.profiler timeline of one ranked pass on the card, split by stage.
 
-Builds the block_optpfor index of chip_smoke.py's 1x collection (10k
-docs, 2M postings, 35k queries; DS2I_BENCH_* and DS2I_BENCH_CACHE as
-there), an engine on the card with its block-max metadata from the
+Builds a block index of chip_smoke.py's 1x collection (10k docs, 2M
+postings, 35k queries; DS2I_BENCH_* and DS2I_BENCH_CACHE as there):
+--index block_optpfor (the default), block_varint, block_qmx, or
+block_mixed (rebuild_mixed over block_optpfor, as chip_smoke.py builds
+it); an engine on the card with its block-max metadata from the
 collection, and two plans of top-10 ranked_and over the whole log:
 exhaustive and and_skip (prune=True). Per plan: 2 warmup passes and 9
 timed passes (host clock around execute, median µs/query); then, with
 record_function spans wrapped around each stage, one more warmup pass
-and one pass under torch.profiler (CPU and CUDA activities). Stages: "decode" (_decode_part), "pack" (_pack_rows, where
-the tree has a pack of its own), "join" (the rest of a part's step,
-_resident_step: the plain join's ops, or K3, which packs too) and
-"collect". From the exported chrome trace: the kernels launched in the
-pass, the device's busy time (the union of its kernel and copy
-intervals) and idle share of the pass's host span, and per stage the
-host time and the device time of the kernels and copies it launched (a
-copy launched outside every stage is the download). One JSON line per
+and one pass under torch.profiler (CPU and CUDA activities). Stages:
+"decode" (_decode_part), "pack" (_pack_rows, where the tree has a pack
+of its own), "join" (the rest of a part's step, _resident_step: the
+plain join's ops, or K3, which packs too) and "collect". From the
+exported chrome trace: the kernels launched in the pass, the device's
+busy time (the union of its kernel and copy intervals) and idle share of
+the pass's host span, per stage the host time and the device time of the
+kernels and copies it launched (a copy launched outside every stage is
+the download), and each kernel's device time by name. One JSON line per
 plan; the traces go to --out (default build/pass_timeline).
 
-    python3 ds2i_torch/tools/pass_timeline.py [--root DIR] [--out DIR] [--tag NAME]
+    python3 ds2i_torch/tools/pass_timeline.py [--root DIR] [--index NAME] [--out DIR] [--tag NAME]
 
 --root: the checkout whose ds2i_torch is profiled (default: the one
 holding this script), so one copy of the script times an older tree
@@ -83,7 +86,10 @@ def analyse(trace_path):
               and p0 <= e["ts"] <= p1 + 1e6]
     stage_dev = {name: 0.0 for name in STAGES + ("download", "other")}
     stage_n = dict.fromkeys(stage_dev, 0)
+    by_kernel = {}
     for e in device:
+        if e.get("cat") == "kernel":
+            by_kernel[e["name"]] = by_kernel.get(e["name"], 0.0) + e["dur"]
         t = runtime.get(e.get("args", {}).get("correlation"))
         inside = [(x - s, name) for s, x, name in spans if t is not None and s <= t <= x]
         name = min(inside)[1] if inside else (  # the innermost span
@@ -101,6 +107,7 @@ def analyse(trace_path):
         "host_us": host,
         "device_us": stage_dev,
         "kernels_by_stage": stage_n,
+        "device_us_by_kernel": by_kernel,
     }
 
 
@@ -109,6 +116,8 @@ def main():
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)))
     ap.add_argument("--out", default=os.path.join("build", "pass_timeline"))
     ap.add_argument("--tag", default="tree")
+    ap.add_argument("--index", default="block_optpfor",
+                    choices=("block_optpfor", "block_varint", "block_qmx", "block_mixed"))
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -127,7 +136,7 @@ def main():
     from ds2i_torch.engine import ResidentEngine, resident
     from ds2i_torch.host import (
         BinaryFreqCollection, GlobalParameters, WandData, generate_collection, make_index_type,
-        read_queries, read_sizes,
+        mixed_choices, read_queries, read_sizes, rebuild_mixed,
     )
 
     num_docs = int(os.environ.get("DS2I_BENCH_DOCS", 10_000))
@@ -143,10 +152,14 @@ def main():
     coll = BinaryFreqCollection(base)
     wdata = WandData.build(read_sizes(base), coll)
     queries = read_queries(base + ".queries")
-    b = make_index_type("block_optpfor").builder(coll.num_docs, GlobalParameters())
+    built = "block_optpfor" if args.index == "block_mixed" else args.index
+    b = make_index_type(built).builder(coll.num_docs, GlobalParameters())
     for docs, freqs in coll:
         b.add_posting_list(len(docs), docs, freqs, int(np.asarray(freqs, dtype=np.int64).sum()))
-    eng = ResidentEngine(b.build(), wdata, device="cuda")
+    index = b.build()
+    if args.index == "block_mixed":
+        index = rebuild_mixed(index, *mixed_choices(index))
+    eng = ResidentEngine(index, wdata, device="cuda")
     eng.build_blockmax(coll)
     plans = {"exhaustive": eng.prepare(queries, k=10, ops=("and",)),
              "and_skip": eng.prepare(queries, k=10, ops=("and",), prune=True)}
@@ -172,7 +185,7 @@ def main():
             torch.cuda.synchronize()
         path = os.path.join(args.out, f"timeline_{args.tag}_{name}.json")
         prof.export_chrome_trace(path)
-        out = {"tree": args.tag, "plan": name, "parts": len(plan["plans"]),
+        out = {"tree": args.tag, "index": args.index, "plan": name, "parts": len(plan["plans"]),
                "us_per_query_median": statistics.median(times[name]),
                "us_per_query_min": min(times[name]), "us_per_query_max": max(times[name]),
                "card": smi, **analyse(path)}

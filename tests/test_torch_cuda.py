@@ -1,7 +1,8 @@
 """The port on the card: each CUDA kernel (the part-level EF pair
 decode, OptPFor, Varint-G8IU, QMX and interpolative block decode, launch
-by launch and as a whole part; the block-max pass in both forms; the
-join and pack, K3, on every part of every plan) against its plain
+by launch and as a whole part, and K7 and K8 on seeded edge rows; the
+block-max pass in both forms; the join and pack, K3, on every part of
+every plan) against its plain
 PyTorch version, and ResidentEngine on CUDA against the same
 engine on the CPU, exhaustive and pruned, over every index type.
 
@@ -31,6 +32,7 @@ from ds2i_torch.ops.block_decode import (
 from ds2i_torch.ops.pair_decode import (
     decode_pair, decode_pair_launch_torch, pair_decode_part, pair_decode_part_torch,
 )
+from torch_block_rows import block_part, qmx_rows, varint_rows
 from torch_join_rows import KINDS, bucket_layout, bucket_of, special_rows
 
 pytestmark = pytest.mark.cuda
@@ -178,6 +180,50 @@ def test_block_kernels_match_plain_on_every_group(cuda, coll, name):
             if gw is not None:
                 torch.testing.assert_close(gw, pw, rtol=0, atol=0)
     assert launched == BLOCK_KERNELS[name]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("kernel", ["qmx", "varint"])
+def test_block_kernel_on_seeded_rows(cuda, kernel, seed):
+    """K8 or K7 on the seeded edge rows of tests/torch_block_rows.py (QMX:
+    ninst < NI, nsel < S, NI and S at 32; Varint-G8IU: ngroups < G = 64
+    and more groups than G; both: the stream's last block, whose words
+    clamp, and malformed cursors at and past the stream's ends), laid as a
+    part of one group per statics: one launch per mode (freqs; docs alone,
+    with presence flags, with BM25 weights) against decode_launch_torch on
+    the card, bit for bit; an output off a 16-byte boundary raises."""
+    if kernel == "qmx":
+        words, rows = qmx_rows(seed)
+        statics = [("qmx", NI, S, 128) for NI, S, _, _ in rows]
+        fields = [f for _, _, f, _ in rows]
+    else:
+        words, rows = varint_rows(seed)
+        statics = [("var", G, 128) for G, _, _ in rows]
+        fields = [f for _, f, _ in rows]
+    lay, t = block_part(statics, fields, seed)
+    words = torch.from_numpy(words.view(np.int32)).to(cuda)
+    fld, gtile, freq, bp, den, g0 = (t[k].to(cuda) for k in (
+        "fld", "gtile", "freq", "blkperm", "den_blocks", "tile_gblk0"))
+    wrapper = block_decode.WRAPPERS[kernel]
+    for mode in ("freqs", "docs", "presence", "bm25"):
+        launch = lay.launch(kernel, mode != "freqs", cuda)
+        assert launch.n_cta > 1
+        outs = []
+        for fn in (wrapper, decode_launch_torch):
+            out = torch.full((lay.nb_d, 32), -7, dtype=torch.int32, device=cuda)
+            w = torch.full((lay.nb_d, 32), -7.0, device=cuda) if mode in ("bm25", "presence") else None
+            before = wrapper.launches
+            fn(launch, words, fld, gtile, mode, t["num_docs"], out, w, freq, bp, den, g0)
+            torch.cuda.synchronize()
+            assert wrapper.launches == before + (fn is wrapper)
+            outs.append((out, w))
+        (go, gw), (po, pw) = outs
+        _same_bits(go, po)
+        if gw is not None:
+            _same_bits(gw, pw)
+    off = torch.empty(lay.nb_d * 32 + 1, dtype=torch.int32, device=cuda)[1:].view(lay.nb_d, 32)
+    with pytest.raises(RuntimeError, match="misaligned"):  # the tail's 16-byte vectors
+        wrapper(lay.launch(kernel, True, cuda), words, fld, gtile, "docs", t["num_docs"], off)
 
 
 @pytest.mark.parametrize("weights", ["bm25", "presence", None])

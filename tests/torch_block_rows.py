@@ -1,0 +1,191 @@
+"""Seeded full-block rows for the QMX (K8) and Varint-G8IU (K7) decode
+tests, in numpy and the port alone (the card's machine has no jax): well
+formed blocks encoded by the port's codecs and laid at random byte
+offsets of one word stream, with their field rows as the engine's tile
+walk fills them, plus the rows a kernel must read outside its block for
+(bucketed NI, S or G past the block's own counts, the stream's last
+block, malformed fields), and a part laid over them as the engine lays
+one (PartLayout, tiles, blkperm, den rows). Used by
+tests/test_torch_qmx_stage.py (a numpy model of csrc/qmx_decode.cu's row
+prologue against qmx_decode_torch on the CPU) and tests/test_torch_cuda.py
+(the kernels against decode_launch_torch on the card)."""
+
+import numpy as np
+import torch
+
+from ds2i_torch.codecs.qmx import QMXBlock
+from ds2i_torch.codecs.varint import VarintG8IUBlock
+from ds2i_torch.engine.block_tiles import (
+    BF_B, BF_BOFF, BF_EX_BOFF, BF_EX_W0, BF_NEX, BF_W0, _G_BUCKETS, _NW_BUCKETS, _S_BUCKETS,
+    _bucket, _qmx_stream, _var_stream,
+)
+from ds2i_torch.engine.tiles import F_BASE, F_NVALS, N_FIELDS
+from ds2i_torch.ops.block_decode import BLOCK, PartLayout
+
+TILE = 128
+
+
+def _encode(codec, values):
+    chunk = []
+    codec.encode(values, int(values.sum()), TILE, chunk)
+    return np.concatenate([np.asarray(c, np.uint8).reshape(-1) for c in chunk])
+
+
+def _lay(streams, rng, max_pad=5):
+    """The streams end to end at random byte offsets, the last one ending
+    the stream (its bytes padded only to the word): (bytes, offsets)."""
+    offs, parts, cur = [], [], 0
+    for s in streams:
+        pad = int(rng.randint(0, max_pad + 1))
+        parts += [np.zeros(pad, np.uint8), s]
+        offs.append(cur + pad)
+        cur += pad + len(s)
+    buf = np.concatenate(parts)
+    return np.concatenate([buf, np.zeros((-len(buf)) % 4, np.uint8)]), offs
+
+
+def _qmx_values(rng, kind):
+    """128 values whose QMX block has the named shape."""
+    if kind == "wide":  # 32 instances of 32-bit values
+        return rng.randint(1 << 31, 1 << 32, size=TILE, dtype=np.uint64)
+    if kind == "alternating":  # 4 values of 32 bits, 8 of 16: 20+ instances and selectors
+        v = np.zeros(TILE, np.uint64)
+        for i in range(0, TILE, 12):
+            v[i:i + 4] = rng.randint(1 << 31, 1 << 32, size=len(v[i:i + 4]), dtype=np.uint64)
+            v[i + 4:i + 12] = rng.randint(1 << 12, 1 << 16, size=len(v[i + 4:i + 12]))
+        return v
+    if kind == "ones":  # a run of the value 1 (type 0) among small values
+        v = rng.randint(0, 1 << 5, size=TILE).astype(np.uint64)
+        v[:96] = 1
+        return v
+    if kind == "ones_last":  # the block's last instance of type 0
+        v = rng.randint(0, 1 << 9, size=TILE).astype(np.uint64)
+        v[32:] = 1
+        return v
+    mag = int(rng.choice([1, 3, 7, 12, 20, 31]))
+    v = rng.randint(0, 1 << mag, size=TILE).astype(np.uint64)
+    v[rng.choice(TILE, 10, replace=False)] = rng.randint(0, 1 << 31, 10)
+    return v
+
+
+def qmx_rows(seed=0):
+    """(words uint32, [(NI, S, fields int32 (N_FIELDS,), kind)]): each
+    well formed block under its own buckets ("fit") and under NI = S = 32
+    ("bucketed": ninst < NI, nsel < S); blocks with runs of the value 1
+    (type 0: "ones", and "ones_last", whose last instance has type 0), of
+    20+ instances and selectors ("alternating", NI and S at 32) and of 32
+    instances ("wide"); the stream's last block, whose staged word after its last
+    selector byte lies past the stream ("stream_end"); and malformed rows
+    (random cursors and counts, selectors before the payload, past the
+    stream or before its start: "malformed")."""
+    rng = np.random.RandomState(seed)
+    kinds = ["fit"] * 6 + ["ones", "ones_last", "wide", "alternating", "alternating"]
+    streams = [_encode(QMXBlock, _qmx_values(rng, k)) for k in kinds]
+    data, offs = _lay(streams, rng)
+    words = data.view("<u4")
+    rows = []
+    for i, (k, off) in enumerate(zip(kinds, offs)):
+        f = np.zeros(N_FIELDS, np.int64)
+        _qmx_stream(data, off, TILE, f)
+        f[F_BASE] = rng.randint(0, 1000)
+        ninst, nsel = int(f[BF_B]), int(f[BF_NEX])
+        NI, S = _bucket(ninst, _NW_BUCKETS), _bucket(nsel, _S_BUCKETS)
+        kind = "stream_end" if i == len(kinds) - 1 else k
+        rows.append((NI, S, f.copy(), kind))
+        if NI < 32 or S < 32:
+            rows.append((32, 32, f.copy(), "bucketed"))
+    nw = len(words)
+    for _ in range(12):
+        f = np.zeros(N_FIELDS, np.int64)
+        f[BF_W0] = rng.randint(-3, nw + 4)
+        f[BF_BOFF] = 8 * rng.randint(0, 4)
+        f[BF_B] = rng.randint(0, 41)
+        f[BF_NEX] = rng.randint(0, 41)
+        f[BF_EX_W0] = f[BF_W0] + rng.randint(-4, 300)
+        f[BF_EX_BOFF] = rng.randint(0, 4)
+        f[F_BASE] = rng.randint(0, 1000)
+        f[F_NVALS] = rng.randint(0, TILE + 1)
+        rows.append((int(rng.choice(_NW_BUCKETS)), int(rng.choice(_S_BUCKETS)), f, "malformed"))
+    # cursors at and past the stream's two ends
+    for w0, sel_w0 in ((nw - 2, nw + 5), (-2, 40), (-9, -3), (nw + 3, nw - 1), (60, 50)):
+        f = rows[-1][2].copy()
+        f[BF_W0], f[BF_EX_W0], f[BF_B], f[BF_NEX] = w0, sel_w0, 32, 32
+        rows.append((32, 32, f, "malformed"))
+    return words, [(NI, S, f.astype(np.int32), kind) for NI, S, f, kind in rows]
+
+
+def varint_rows(seed=0):
+    """(words uint32, [(G, fields int32 (N_FIELDS,), kind)]): each well
+    formed block under its own bucket ("fit") and under G = 64 (ngroups <
+    G: "bucketed"); blocks of more groups than a smaller G reads
+    ("over_g"); the stream's last block ("stream_end"); malformed rows
+    (random cursors and group counts, some past the stream or negative:
+    "malformed")."""
+    rng = np.random.RandomState(seed)
+    vals = []
+    for mag in (6, 8, 14, 22, 30, 32, 7, 16):
+        v = rng.randint(0, 2 ** mag, size=TILE, dtype=np.uint64).astype(np.uint32)
+        vals.append(v)
+    streams = [_encode(VarintG8IUBlock, v) for v in vals]
+    data, offs = _lay(streams, rng)
+    words = data.view("<u4")
+    rows = []
+    for i, off in enumerate(offs):
+        f = np.zeros(N_FIELDS, np.int64)
+        _var_stream(data, off, TILE, f)
+        f[F_BASE] = rng.randint(0, 1000)
+        G = _bucket(int(f[BF_B]), _G_BUCKETS)
+        kind = "stream_end" if i == len(offs) - 1 else "fit"
+        rows.append((G, f.copy(), kind))
+        if G < 64:
+            rows.append((64, f.copy(), "bucketed"))
+        if f[BF_B] > 24:
+            rows.append((24, f.copy(), "over_g"))
+    nw = len(words)
+    for _ in range(8):
+        f = np.zeros(N_FIELDS, np.int64)
+        f[BF_W0] = rng.randint(-3, nw + 4)
+        f[BF_BOFF] = 8 * rng.randint(0, 4)
+        f[BF_B] = rng.randint(-2, 80)
+        f[F_BASE] = rng.randint(0, 1000)
+        f[F_NVALS] = rng.randint(0, TILE + 1)
+        rows.append((int(rng.choice(_G_BUCKETS)), f, "malformed"))
+    for w0 in (nw - 1, nw - 20, -2, -200):  # windows at and past the stream's two ends
+        f = rows[-1][1].copy()
+        f[BF_W0], f[BF_B] = w0, 64
+        rows.append((64, f, "malformed"))
+    return words, [(G, f.astype(np.int32), kind) for G, f, kind in rows]
+
+
+def block_part(statics, fields, seed=0, num_docs=5000):
+    """A split-mode part over the given rows, laid as the engine lays one:
+    one group per distinct statics (its rows in the given order, split
+    into CTAs of 8 rows by the layout), the field table
+    (one tile a row and a pad tile), the row-to-tile maps of both
+    streams, and the BM25 inputs of a docs launch (freqs-order blocks,
+    blkperm, den_blocks, tile_gblk0), all seeded. Returns a dict of CPU
+    tensors and the PartLayout."""
+    rng = np.random.RandomState(seed)
+    order = sorted(range(len(statics)), key=lambda i: (statics[i], i))
+    groups, off = [], 0
+    for st in sorted(set(statics)):
+        n = sum(1 for i in order if statics[i] == st)
+        groups.append((off, n, st))
+        off += n
+    R = len(order)
+    fld = np.zeros((R + 1, N_FIELDS), np.int32)  # the pad tile last, all zeros
+    fld[:R] = np.stack(fields)
+    gtile = np.asarray(order, np.int64)
+    lay = PartLayout(groups, groups)
+    nb = lay.nb_d
+    tile_gblk0 = np.concatenate([rng.permutation(R) * 4, [4 * R]]).astype(np.int64)
+    return lay, {
+        "fld": torch.from_numpy(fld),
+        "gtile": torch.from_numpy(gtile),
+        "freq": torch.from_numpy(rng.randint(1, 60, size=(nb, BLOCK)).astype(np.int32)),
+        "blkperm": torch.from_numpy(rng.permutation(nb).astype(np.int64)),
+        "den_blocks": torch.from_numpy(
+            rng.uniform(0.5, 3.0, size=(4 * R + 4, BLOCK)).astype(np.float32)),
+        "tile_gblk0": torch.from_numpy(tile_gblk0),
+        "num_docs": num_docs,
+    }
