@@ -7,7 +7,9 @@ with its 35k-query log, first over a partitioned Elias-Fano (`opt`)
 index in pair mode, then over a `block_optpfor` index in split mode
 (bench.py's default index type), exhaustive and then block-max pruned
 (bench.py's default op, and_skip), then over the other block codecs:
-`block_varint`, `block_qmx` and `block_mixed`.
+`block_varint`, `block_qmx` and `block_mixed`; then the front door: the
+command-line tools, doc-range shards, make_engine, replicas and
+cache_dir.
 
   1. card name and power limit (nvidia-smi), torch and CUDA versions
   2. build the CUDA kernels from csrc/ (one nvcc per source, all at
@@ -69,7 +71,29 @@ index in pair mode, then over a `block_optpfor` index in split mode
      interp_decode): each a block path as above (a kernel first met here
      timed) and its and_skip path; on block_qmx and block_mixed with the
      second engine's decode pass
-  12. the script's wall time, the kernels' JSON line, then {"ok": true,
+  12. the front door (front_door_phase, at the same 1x collection; every
+     count set to 0 just before it and read just after, into each JSON
+     entry's front_door_launches): the quick-start tools, each in its own
+     process as a user runs them (create_freq_index --check for opt and
+     block_optpfor and create_wand_data at once; then queries over
+     their files at once: block_optpfor's and, ranked_and, wand and
+     maxscore and opt's ranked_and on the resident engine on the card,
+     block_optpfor's ranked_and on the native CPU cursors), each exiting
+     0 with its stats lines; the files loaded back (tools.common), the
+     index byte-equal to the in-process one and an engine over it equal
+     on every query; DocShardedEngine.from_collection (4 shards of
+     block_optpfor on the card) against the single engine on every
+     query (counts exact; ranked_and, ranked_or, and_skip, wand and
+     maxscore within rtol 1e-3 of the exhaustive ops), each shard's
+     parts and launches a pass and µs/query beside the single engine's;
+     make_engine (a ResidentEngine under the limit it computes from the
+     card's memory, a DocShardedEngine under a third of the index's
+     bytes, equal results); ResidentEngine(devices=[cuda, cuda]) with
+     parts round-robin, equal results; cache_dir over block_optpfor and
+     the loaded opt index: a cold engine builds and saves, a second
+     loads, both set-ups timed, the second launching K5 and the decode
+     no time before its first pass and equal on and_skip
+  13. the script's wall time, the kernels' JSON line, then {"ok": true,
      "device": {...}} last
   Every main path (each slice phase above, exhaustive and and_skip) also
   launches K3, the join and pack (join_part, csrc/join.cu: one launch a
@@ -109,6 +133,8 @@ ORACLE_QUERIES = 300
 OR_PRUNE_QUERIES = 2000
 INTERP_ORACLE_QUERIES = 100
 RTOL = 1e-3  # the reference's ranked-test tolerance (test_ranked_queries.cpp:52)
+FRONT_DOOR_SHARDS = 4
+TOOL_TIMEOUT_S = 600
 PASSES = 9
 # the least time for a kernel's work: the bytes it must move over the H100
 # SXM's 3.35 TB/s of device memory (NVIDIA's H100 SXM data sheet)
@@ -167,13 +193,18 @@ def device_only_ms(fn, reps=5):
     return statistics.median(times)
 
 
+def collection_base():
+    """The basename of the generated collection's files."""
+    return os.path.join(CACHE, f"coll_{NUM_DOCS}_{POSTINGS}_{NUM_QUERIES}")
+
+
 def load_collection():
     from ds2i_torch.host import (
         BinaryFreqCollection, WandData, generate_collection, read_queries, read_sizes,
     )
 
     os.makedirs(CACHE, exist_ok=True)
-    base = os.path.join(CACHE, f"coll_{NUM_DOCS}_{POSTINGS}_{NUM_QUERIES}")
+    base = collection_base()
     t0 = time.perf_counter()
     if not os.path.exists(base + ".queries"):
         generate_collection(base, num_docs=NUM_DOCS, num_terms=NUM_TERMS,
@@ -972,11 +1003,10 @@ def main_path(eng, queries, path_kernels, tag, prune=False, before=None, join_en
     in the timed passes. Then the join phase over the path's plan (K3
     timed into join_entry). Returns the plan and the last pass's
     results."""
-    from ds2i_torch.ops import block_decode, blockmax, join, pair_decode
+    from ds2i_torch.ops import blockmax, join
 
     path_kernels = list(path_kernels) + [(join_entry, join.join_part)]
-    all_wrappers = (pair_decode.decode_pair, *block_decode.WRAPPERS.values(),
-                    blockmax.blockmax_rows, join.join_part)
+    all_wrappers = kernel_wrappers()
     for w in all_wrappers:
         w.launches = 0
     if before is not None:
@@ -994,6 +1024,14 @@ def main_path(eng, queries, path_kernels, tag, prune=False, before=None, join_en
     decode_stage_phase(eng, plan, tag)
     join_phase(eng, plan, tag, join_entry)
     return plan, res
+
+
+def kernel_wrappers():
+    """Every kernel's wrapper, each counting its launches."""
+    from ds2i_torch.ops import block_decode, blockmax, join, pair_decode
+
+    return (pair_decode.decode_pair, *block_decode.WRAPPERS.values(), blockmax.blockmax_rows,
+            join.join_part)
 
 
 def decode_stage_phase(eng, plan, tag):
@@ -1245,6 +1283,364 @@ def block_path(index, wdata, queries, entries, tag, join_entry=None):
     return eng, plan, res, wrappers
 
 
+class Tools:
+    """Tools run as a user runs them, `python -m ds2i_torch.tools.<tool>
+    arguments` from the repository's root, each in its own process; a
+    wave of them starts at once and runs while this process goes on (the
+    queries tool gets --device tool_device when given). kill() stops any
+    still running."""
+
+    def __init__(self, tool_device=None):
+        self.tool_device = tool_device
+        self.procs = []
+
+    def start(self, cmds):
+        """Start every tool of `cmds` ({label: [tool, arguments...]})."""
+        env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        wave = {}
+        for label, (tool, *args) in cmds.items():
+            if tool == "queries" and self.tool_device is not None:
+                args += ["--device", self.tool_device]
+            wave[label] = subprocess.Popen(
+                [sys.executable, "-m", f"ds2i_torch.tools.{tool}", *map(str, args)], cwd=HERE,
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            self.procs.append(wave[label])
+        return time.perf_counter(), wave
+
+    @staticmethod
+    def wait(started):
+        """Wait for a started wave; every tool must exit 0. Returns
+        {label: (seconds from the wave's start to its exit, its stats
+        lines)}."""
+        t0, wave = started
+        out = {}
+        for label, proc in wave.items():
+            stdout, stderr = proc.communicate(timeout=TOOL_TIMEOUT_S)
+            if proc.returncode != 0:
+                raise AssertionError(f"{label} exited {proc.returncode}:\n{stderr[-3000:]}")
+            out[label] = (time.perf_counter() - t0,
+                          [json.loads(x) for x in stdout.splitlines() if x.startswith("{")])
+            log(f"front door: {label}: exit 0 within {out[label][0]:.1f} s of its wave's start; "
+                f"stats lines: {json.dumps(out[label][1])}")
+        return out
+
+    def kill(self):
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+QUERY_TOOL_OPS = "and:ranked_and:wand:maxscore"
+
+
+def build_tools(base, f):
+    """The quick start's first wave: create_freq_index --check for opt
+    and block_optpfor, and create_wand_data."""
+    return {
+        "create_freq_index opt --check": ["create_freq_index", "opt", base, f("opt.bin"),
+                                          "--check"],
+        "create_freq_index block_optpfor --check": ["create_freq_index", "block_optpfor", base,
+                                                    f("block_optpfor.bin"), "--check"],
+        "create_wand_data": ["create_wand_data", base, f("wand.bin")],
+    }
+
+
+def check_built(built):
+    """Each create_freq_index printed its build's stats lines (postings,
+    size; partitions for opt); create_wand_data prints none (its file
+    is loaded by loaded_phase)."""
+    for label, (_, lines) in built.items():
+        if label.startswith("create_freq_index"):
+            name = label.split()[1]
+            if not (any(x.get("type") == name and x.get("postings", 0) > 0 for x in lines)
+                    and any("size" in x and "bits_per_posting" in x for x in lines)
+                    and (name != "opt" or any(x.get("partitions", 0) > 0 for x in lines))):
+                raise AssertionError(f"{label}: its stats lines lack the build's: {lines}")
+
+
+def query_tools(base, f):
+    """The second wave, over the first's files: the queries tool with
+    block_optpfor's four ops and opt's ranked_and on the resident engine
+    (the card), block_optpfor's ranked_and on the native CPU cursors."""
+    q = ["--queries", base + ".queries"]
+    return {
+        "queries block_optpfor resident": ["queries", "block_optpfor", QUERY_TOOL_OPS,
+                                           f("block_optpfor.bin"), f("wand.bin"), *q, "--engine",
+                                           "resident"],
+        "queries opt resident": ["queries", "opt", "ranked_and", f("opt.bin"), f("wand.bin"), *q,
+                                 "--engine", "resident"],
+        "queries block_optpfor native": ["queries", "block_optpfor", "ranked_and",
+                                         f("block_optpfor.bin"), f("wand.bin"), *q, "--engine",
+                                         "native"],
+    }
+
+
+def check_served(served):
+    """Each queries run printed one stats line an op, on its engine."""
+    want = {"queries block_optpfor resident": QUERY_TOOL_OPS.split(":"),
+            "queries opt resident": ["ranked_and"], "queries block_optpfor native": ["ranked_and"]}
+    for label, (_, lines) in served.items():
+        engine = label.split()[-1]
+        if ([x.get("query") for x in lines] != want[label]
+                or not all(x.get("engine") == engine and x.get("avg", 0) > 0 for x in lines)):
+            raise AssertionError(f"{label}: stats lines {lines}, expected {want[label]} on the "
+                                 f"{engine} engine")
+
+
+def loaded_phase(f, index, wdata, single, queries, exact_and):
+    """The files the tools wrote, loaded back through the port's front
+    door (tools.common): the block_optpfor index byte-equal to the
+    in-process one (lists and endpoints), the wand data equal, and an
+    engine over them giving the in-process engine's top-10 on every
+    query. Returns the loaded `opt` index."""
+    from ds2i_torch.engine import ResidentEngine
+    from ds2i_torch.tools.common import load_index, load_wand_data
+
+    loaded = load_index(f("block_optpfor.bin"), "block_optpfor")
+    lw = load_wand_data(f("wand.bin"))
+    if not (np.asarray(loaded.lists).tobytes() == np.asarray(index.lists).tobytes()
+            and np.array_equal(np.asarray(loaded.endpoints()), np.asarray(index.endpoints()))):
+        raise AssertionError("the block_optpfor index the tool wrote differs from the in-process one")
+    for name in ("norm_lens", "max_term_weight"):
+        if np.asarray(getattr(lw, name)).tobytes() != np.asarray(getattr(wdata, name)).tobytes():
+            raise AssertionError(f"the wand data the tool wrote differs in {name}")
+    eng = ResidentEngine(loaded, lw, device=single.device)
+    bad = topk_mismatches(eng.ranked_and(queries, k=10), exact_and)
+    if bad:
+        raise AssertionError(f"the engine over the loaded index differs on queries {bad[:10]}")
+    log(f"front door: the loaded block_optpfor index is byte-equal to the in-process one "
+        f"({len(loaded.lists)} bytes, {loaded.size()} lists), the wand data equal; an engine "
+        f"over them gives the same top-10 on all {len(queries)} queries")
+    return load_index(f("opt.bin"), "opt")
+
+
+def pass_us(eng, plan, n, passes=5):
+    """Median µs/query of `passes` executions of `plan` (after one
+    untimed), host clock."""
+    import torch
+
+    eng.execute(plan)
+    times = []
+    for _ in range(passes):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.execute(plan)
+        times.append((time.perf_counter() - t) / n * 1e6)
+    return statistics.median(times)
+
+
+def shard_phase(coll, wdata, single, queries, exact_and, exact_or, dev):
+    """DocShardedEngine.from_collection, FRONT_DOOR_SHARDS doc-range
+    shards of block_optpfor on the card, against the single engine on
+    every query: and/or counts exact; exhaustive ranked_and and
+    ranked_or, and_skip, wand and maxscore within rtol RTOL of the
+    single engine's exhaustive ops. Returns the sharded engine."""
+    from ds2i_torch.parallel import DocShardedEngine
+
+    t0 = time.perf_counter()
+    sharded = DocShardedEngine.from_collection(coll, "block_optpfor", wdata,
+                                               num_shards=FRONT_DOOR_SHARDS, devices=[dev])
+    log(f"front door: DocShardedEngine.from_collection, {sharded.num_shards} shards on {dev}: "
+        f"{time.perf_counter() - t0:.1f} s; doc bounds {sharded.bounds.tolist()}")
+    for op in ("and_counts", "or_counts"):
+        got, exp = getattr(sharded, op)(queries), getattr(single, op)(queries)
+        if not np.array_equal(got, exp):
+            raise AssertionError(f"sharded {op} differ on {int(np.sum(got != exp))} queries")
+    for op, got, exp in (
+            ("ranked_and", sharded.ranked_and(queries, k=10), exact_and),
+            ("ranked_or", sharded.ranked_or(queries, k=10), exact_or),
+            ("and_skip", sharded.ranked_and(queries, k=10, prune=True), exact_and),
+            ("wand", sharded.wand(queries, k=10), exact_or),
+            ("maxscore", sharded.maxscore(queries, k=10), exact_or)):
+        bad = topk_mismatches(got, exp)
+        if bad:
+            raise AssertionError(f"sharded {op} differs from the single engine's exhaustive op "
+                                 f"on queries {bad[:10]}")
+    log(f"front door: the sharded engine equals the single engine on all {len(queries)} "
+        f"queries: and/or counts exact; ranked_and, ranked_or, and_skip, wand and maxscore "
+        f"within rtol {RTOL} of the exhaustive ops")
+    return sharded
+
+
+def shard_timing(sharded, single, queries):
+    """Each shard's parts and kernel launches a pass, and µs/query of the
+    sharded engine beside the single engine's, exhaustive and
+    and_skip."""
+    wrappers = kernel_wrappers()
+    for label, prune in (("exhaustive ranked_and", False), ("and_skip", True)):
+        plan = sharded.prepare(queries, k=10, ops=("and",), prune=prune)
+        one = single.prepare(queries, k=10, ops=("and",), prune=prune)
+        for i, (e, p) in enumerate(zip(sharded.engines, plan["shards"])):
+            n0 = [w.launches for w in wrappers]
+            e.execute(p)
+            n = {w.__name__: w.launches - a for w, a in zip(wrappers, n0) if w.launches > a}
+            log(f"front door: {label}: shard {i}: {len(p['plans'])} parts, launches a pass {n}")
+        log(f"front door: {label}: {pass_us(sharded, plan, len(queries)):.4f} µs/query over "
+            f"{sharded.num_shards} shards against {pass_us(single, one, len(queries)):.4f} on "
+            f"the single engine ({len(one['plans'])} parts), median of 5 passes each")
+
+
+def make_engine_phase(index, wdata, single, queries, exact_and):
+    """make_engine: a ResidentEngine under the limit it computes from the
+    card's memory, a DocShardedEngine with equal results under a third
+    of the index's bytes."""
+    import torch
+
+    from ds2i_torch.engine import ResidentEngine, make_engine, resident_stream_limit
+    from ds2i_torch.parallel import DocShardedEngine
+
+    dev = single.device
+    limit = resident_stream_limit(dev)
+    log(f"front door: make_engine's limit on {torch.cuda.get_device_name(dev)}: {limit} bytes "
+        f"(the JAX package's {(1 << 33) - (1 << 20)}; half the card's memory "
+        f"{torch.cuda.get_device_properties(dev).total_memory // 2})")
+    eng = make_engine(index, wdata, device=dev)
+    if not isinstance(eng, ResidentEngine):
+        raise AssertionError(f"make_engine gave a {type(eng).__name__} for {len(index.lists)} bytes")
+    del eng
+    forced = make_engine(index, wdata, limit=len(index.lists) // 3, device=dev)
+    if not isinstance(forced, DocShardedEngine):
+        raise AssertionError(f"make_engine under a third of the bytes gave {type(forced).__name__}")
+    bad = topk_mismatches(forced.ranked_and(queries, k=10), exact_and)
+    if bad or not np.array_equal(forced.and_counts(queries), single.and_counts(queries)):
+        raise AssertionError(f"make_engine's sharded engine differs on queries {bad[:10]}")
+    log(f"front door: make_engine: a ResidentEngine for {len(index.lists)} bytes; under "
+        f"{len(index.lists) // 3} bytes a DocShardedEngine of {forced.num_shards} shards, equal "
+        f"on all {len(queries)} queries (and counts, ranked_and)")
+
+
+def replica_phase(index, wdata, queries, exact_and, exact_skip, dev):
+    """ResidentEngine(devices=[dev, dev]): two copies of the resident
+    state on the card, a plan's parts round-robin over them, results
+    equal to the single engine's (exhaustive and and_skip)."""
+    from ds2i_torch.engine import ResidentEngine
+
+    two = ResidentEngine(index, wdata, devices=[dev, dev],
+                         max_part_queries=-(-len(queries) // 8))
+    plan = two.prepare(queries, k=10, ops=("and",))
+    if len(plan["plans"]) < 4:
+        raise AssertionError(f"{len(plan['plans'])} parts: too few to round-robin")
+    got = [two._topk_list(r[3]) for r in two.execute(plan)]
+    bad = topk_mismatches(got, exact_and) + topk_mismatches(
+        two.ranked_and(queries, k=10, prune=True), exact_skip)
+    if bad:
+        raise AssertionError(f"two replicas differ from one engine on queries {bad[:10]}")
+    log(f"front door: ResidentEngine(devices=[{dev}, {dev}]): {len(plan['plans'])} parts "
+        f"round-robin over 2 copies of the state ({two.state.nbytes()} bytes each), exhaustive "
+        f"and and_skip equal to one engine on all {len(queries)} queries")
+
+
+def cache_phase(name, index, coll, wdata, queries, cache_dir, dev):
+    """cache_dir: a cold engine builds and saves, a second engine over
+    the same index loads. Both set-ups timed (init, _ensure_norm_cache,
+    build_blockmax, prepare(prune=True, ops=("and",))); the second
+    launches K5 (blockmax) and the norm cache's decode zero times, and
+    its and_skip answers equal the first's."""
+    import torch
+
+    from ds2i_torch.engine import ResidentEngine
+    from ds2i_torch.ops import blockmax
+
+    decoders = [w for w in kernel_wrappers() if w.__name__.endswith("decode")
+                or w.__name__ == "decode_pair"]
+    runs = []
+    for run in ("cold", "warm"):
+        k5, dec = blockmax.blockmax_rows.launches, sum(w.launches for w in decoders)
+        t = {}
+        t0 = time.perf_counter()
+        eng = ResidentEngine(index, wdata, device=dev, cache_dir=cache_dir)
+        t["init"] = time.perf_counter() - t0
+        for stage, fn in (("_ensure_norm_cache", eng._ensure_norm_cache),
+                          ("build_blockmax", lambda: eng.build_blockmax(coll)),
+                          ("prepare", lambda: eng.prepare(queries, k=10, ops=("and",),
+                                                          prune=True))):
+            t0 = time.perf_counter()
+            plan = fn()
+            torch.cuda.synchronize()
+            t[stage] = time.perf_counter() - t0
+        k5, dec = blockmax.blockmax_rows.launches - k5, sum(w.launches for w in decoders) - dec
+        res = [eng._topk_list(r[3]) for r in eng.execute(plan)]
+        runs.append((t, k5, dec, res))
+        log(f"front door: {name} cache_dir, {run} engine: set-up (s) "
+            f"{ {k: round(v, 4) for k, v in t.items()} }, total {sum(t.values()):.4f}; K5 "
+            f"launches {k5}, decode launches before the first pass {dec}; the AND probe ran "
+            f"{plan['probe_rows']} rows")
+        del eng
+    (_, k5_cold, _, cold), (_, k5_warm, dec_warm, warm) = runs
+    if k5_cold <= 0 or k5_warm != 0 or dec_warm != 0:
+        raise AssertionError(f"{name}: K5 launched {k5_cold} times cold, {k5_warm} warm; the "
+                             f"warm set-up launched {dec_warm} decodes")
+    bad = topk_mismatches(warm, cold)
+    if bad:
+        raise AssertionError(f"{name}: the cached engine's and_skip differs on queries {bad[:10]}")
+    log(f"front door: {name} cache_dir: the second engine launched K5 0 times and equals the "
+        f"first's and_skip on all {len(queries)} queries; files "
+        f"{sorted(os.listdir(cache_dir))}")
+
+
+def front_door_phase(coll, wdata, queries, index, entries, tool_device=None):
+    """This slice's path, its launch counts set to 0 just before it and
+    read just after (into each JSON entry's front_door_launches). The
+    tools run in their own processes while this one checks what needs
+    no file of theirs: their first wave (build_tools) beside the
+    doc-sharded engine (shard_phase), make_engine (make_engine_phase)
+    and two replicas (replica_phase); their second (query_tools) beside
+    the files loaded back (loaded_phase). Then, with no tool running,
+    what is timed: the sharded engine's passes (shard_timing) and
+    cache_dir over block_optpfor and the loaded `opt` index
+    (cache_phase). index: the in-process block_optpfor index. The
+    launches of the tools' own processes are not counted here."""
+    import shutil
+
+    import torch
+
+    from ds2i_torch.ops import blockmax, join, pair_decode
+
+    for w in kernel_wrappers():
+        w.launches = 0
+    t_phase = time.perf_counter()
+    out = os.path.join(HERE, "build", "ds2i_front_door")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    f = lambda name: os.path.join(out, name)  # noqa: E731
+    base = collection_base()
+    tools = Tools(tool_device)
+    try:
+        wave = tools.start(build_tools(base, f))
+        single = start_engine(index, wdata)
+        dev = single.device
+        exact_and, exact_or = single.ranked_and(queries, k=10), single.ranked_or(queries, k=10)
+        exact_skip = single.ranked_and(queries, k=10, prune=True)
+        sharded = shard_phase(coll, wdata, single, queries, exact_and, exact_or, dev)
+        make_engine_phase(index, wdata, single, queries, exact_and)
+        replica_phase(index, wdata, queries, exact_and, exact_skip, dev)
+        check_built(Tools.wait(wave))
+        wave = tools.start(query_tools(base, f))
+        opt_index = loaded_phase(f, index, wdata, single, queries, exact_and)
+        check_served(Tools.wait(wave))
+        log(f"front door: the tools' two waves and the checks beside them: "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        shard_timing(sharded, single, queries)
+        del single, sharded
+        torch.cuda.empty_cache()
+        for name, idx in (("block_optpfor", index), ("opt", opt_index)):
+            cache_phase(name, idx, coll, wdata, queries, f(f"cache_{name}"), dev)
+    finally:
+        tools.kill()
+        shutil.rmtree(out, ignore_errors=True)
+    counts = {w.__name__: w.launches for w in kernel_wrappers()}
+    log(f"front door: launches over the phase (this process): {counts}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    for w in (pair_decode.decode_pair, *(w for w in kernel_wrappers() if w.__name__ in (
+            "optpfor_decode", "interp_decode")), blockmax.blockmax_rows, join.join_part):
+        if w.launches <= 0:
+            raise AssertionError(f"the front door phase never launched the CUDA {w.__name__}")
+    wrapper_of = {"pair_decode": "decode_pair", "blockmax": "blockmax_rows", "join": "join_part"}
+    for e in entries:
+        e["front_door_launches"] = counts[wrapper_of.get(e["name"], e["name"])]
+
+
 def main():
     import torch
 
@@ -1321,9 +1717,13 @@ def main():
     order = ("optpfor_decode", "varint_decode", "qmx_decode", "interp_decode")
     if sorted(by_name) != sorted(order):
         raise AssertionError(f"block kernels timed: {sorted(by_name)}, expected {sorted(order)}")
+    entries = [pair_entry, *(by_name[n] for n in order), bm_entry, join_entry]
+
+    # the front door: the tools, a doc-sharded engine, make_engine,
+    # replicas and cache_dir over the block_optpfor index
+    front_door_phase(coll, wdata, queries, opt_index, entries)
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [pair_entry, *(by_name[n] for n in order), bm_entry,
-                                  join_entry]}))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -20,7 +20,19 @@ Layer map (mirrors ds2i_tpu's module names):
   engine.tiles       host tile tables (numpy copy; tiles_fast for plain ef)
   engine.block_tiles host block tile tables and exception patches (copy)
   engine.state       the resident device tensors
-  engine.resident    ResidentEngine: host planner + device decode/join
+  engine.resident    ResidentEngine: host planner + device decode/join;
+                     replicas (devices=), one doc-range shard's view
+                     (query_dfs=, term_remap=), derived state kept
+                     across restarts (cache_dir=)
+  engine             make_engine: one ResidentEngine, or doc-range
+                     shards past the resident-stream limit
+  parallel.doc_sharded  DocShardedEngine: one engine per doc range
+  index.mapper       freeze/load of index files (the JAX package's
+                     format; either package loads the other's files)
+  tools              the quick start's command-line tools
+                     (gen_collection, create_freq_index,
+                     create_wand_data, queries; tools.common saves and
+                     loads indexes and wand data)
   kernels            nvcc build at first use (one per source, in
                      parallel), ctypes binding
   native             the host C++ library (g++ at first use, into

@@ -48,15 +48,30 @@ their defaults; its plan arrays and directories equal the JAX engine's
 (tests/test_torch_resident.py, tests/test_torch_prune.py). Semantics
 match the oracle layer: same doc sets and counts, f32 scores accumulated
 in query term order.
+
+Scale-out and restarts, as in the JAX engine: devices= replicates the
+resident state and round-robins the parts over the replicas; query_dfs=
+and term_remap= serve one doc-range shard of a larger collection
+(parallel.doc_sharded); cache_dir= keeps what the engine derives from
+the index (tile tables, exception patches, the norm cache, the block-max
+tables, the probe thresholds) in files keyed by the index, the norm
+lengths and the backend, so a restart loads instead of walking and
+decoding again.
 """
 
+import contextlib
+import hashlib
+import json
 import math
+import os
 import time
+import zipfile
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..queries.bm25 import BM25
 from ..queries.parsing import query_freqs
 from ..utils.logging import logger
@@ -64,7 +79,7 @@ from ..utils.logging import logger
 from ..ops import block_decode, blockmax, join, pair_decode
 from .block_tiles import BF_EX_BASE, build_block_tables, build_exception_patches
 from .state import resident_state_from_arrays
-from .tiles import F_NVALS, N_FIELDS, TILE, build_tile_tables
+from .tiles import F_NVALS, N_FIELDS, TILE, TileTables, build_tile_tables
 
 _F32 = np.float32
 _I32 = np.int32
@@ -110,6 +125,12 @@ def _concat_collection(collection):
         z = np.zeros(0, dtype=np.int64)
         return z, z.copy(), z.copy()
     return np.concatenate(ds), np.concatenate(fs), np.array(ln, dtype=np.int64)
+
+
+def _on(device):
+    """Make `device` the current CUDA device (the kernels launch on the
+    thread's current device); a no-op on the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
 def _bm_chunk_rows(max_part_slots, total):
@@ -218,9 +239,27 @@ class ResidentEngine:
     # rounds of the AND directory's overlap fixpoint (DS2I_AND_FIXPOINT's
     # default)
     AND_FIXPOINT_ROUNDS = 3
+    # bump when anything the cache files hold changes layout (a new
+    # version never reads an older one's files)
+    CACHE_VERSION = 1
 
     def __init__(self, index, wdata=None, max_part_slots=1 << 21,
-                 max_part_queries=16384, device=None):
+                 max_part_queries=16384, device=None, devices=None, query_dfs=None,
+                 term_remap=None, cache_dir=None):
+        """device: where the resident state lives (None: the CUDA card;
+        "cpu": the plain PyTorch path). devices: replicas of the state
+        instead, one per entry, the parts of a plan round-robin over them
+        (the JAX engine's devices=); not together with device.
+        query_dfs: i64[global terms] document frequencies for the BM25
+        query weights in place of this index's list lengths, and
+        term_remap: i64[global terms] -> this index's list id, -1 where it
+        holds no postings (the term still counts toward AND targets):
+        a doc-range shard of parallel.doc_sharded. cache_dir: a directory
+        for the derived state (see _cache_id)."""
+        if device is not None and devices:
+            raise ValueError("ResidentEngine takes device= or devices= (replicas), not both")
+        devs = [resolve_device(d) for d in devices] if devices else None
+        self._set_options(query_dfs, term_remap, cache_dir)
         docs_words, freqs_words = self._init_host(index, max_part_slots, max_part_queries)
         t = self.tiles
         norm_lens = (
@@ -229,8 +268,18 @@ class ResidentEngine:
         )
         self._attach(resident_state_from_arrays(
             docs_words, freqs_words, self._with_pad(t.docs), self._with_pad(t.freqs),
-            BM25.norm_denominator(norm_lens), device=device,
+            BM25.norm_denominator(norm_lens), device=devs[0] if devs else device,
         ))
+        self.devices = devs
+        # replica 0 is self.state; the others are copies of it
+        self._replicas = [self.state] + [self.state.replica(d) for d in devs[1:]] if devs else None
+
+    def _set_options(self, query_dfs=None, term_remap=None, cache_dir=None):
+        self.query_dfs = None if query_dfs is None else np.asarray(query_dfs, dtype=np.int64)
+        self.term_remap = None if term_remap is None else np.asarray(term_remap, dtype=np.int64)
+        self.cache_dir = cache_dir
+        self._cache_key = None  # _cache_id, computed once
+        self.devices = self._replicas = None
 
     @classmethod
     def from_state(cls, index, state, max_part_slots=1 << 21, max_part_queries=16384):
@@ -239,6 +288,7 @@ class ResidentEngine:
         planner tables come from `index`; the state's tile tables must
         be this index's."""
         eng = cls.__new__(cls)
+        eng._set_options()
         eng._init_host(index, max_part_slots, max_part_queries)
         for name, rows in (("tiles_docs", eng.tiles.docs), ("tiles_freqs", eng.tiles.freqs)):
             got = getattr(state, name).cpu().numpy()
@@ -291,7 +341,7 @@ class ResidentEngine:
     def _attach(self, state):
         self.state = state
         self.device = state.device
-        norm_den = state.norm_den.cpu().numpy()
+        norm_den = self._norm_den_host = state.norm_den.cpu().numpy()
         if norm_den.shape != (self.num_docs,):
             raise ValueError(f"norm_den has shape {norm_den.shape}, index has {self.num_docs} docs")
         # provable lower bound on any bm25 doc-term weight (f>=1, den<=max),
@@ -299,9 +349,95 @@ class ResidentEngine:
         den_max = float(np.max(norm_den)) if self.num_docs else 1.0
         self._wmin = (1.0 / (1.0 + den_max)) * (1.0 - 1e-6)
 
+    # -- derived-state persistence (the JAX engine's cache_dir) ---------------
+
+    def _cache_id(self):
+        """The key of this engine's cache files: a hash of the backend
+        ("torch"), CACHE_VERSION and the index (its first and last MiB of
+        words and its sizes, as the JAX engine hashes it). The block
+        maxima and probe thresholds come from this backend's arithmetic,
+        so the port and the JAX package never read each other's files."""
+        if self._cache_key is None:
+            h = hashlib.blake2b(digest_size=16)
+            h.update(f"torch-v{self.CACHE_VERSION}".encode())
+            index = self.index
+            if hasattr(index, "docs_sequences"):
+                for coll in (index.docs_sequences, index.freqs_sequences):
+                    w = np.asarray(coll.bits_bv.words)
+                    h.update(w[: 1 << 17].tobytes())
+                    h.update(w[-(1 << 17):].tobytes())
+                    h.update(str((int(coll.bits_bv.nbits), coll.size())).encode())
+                h.update(str(self.num_docs).encode())
+            else:
+                data = index.lists
+                h.update(np.asarray(data[: 1 << 20]).tobytes())
+                h.update(np.asarray(data[-(1 << 20):]).tobytes())
+                h.update(str((len(data), index.size(), self.num_docs)).encode())
+            self._cache_key = h.hexdigest()
+        return self._cache_key
+
+    def _cache_path(self, part, with_norms=False):
+        """The file of one cached piece, or None without cache_dir.
+        with_norms: the piece depends on the BM25 denominators too."""
+        if not self.cache_dir:
+            return None
+        key = self._cache_id()
+        if with_norms:
+            hn = hashlib.blake2b(digest_size=8)
+            hn.update(self._norm_den_host.tobytes())
+            key = f"{key}_{hn.hexdigest()}"
+        os.makedirs(self.cache_dir, exist_ok=True)
+        return os.path.join(self.cache_dir, f"torch_resident_{key}_{part}.npz")
+
+    def _cache_load(self, part, with_norms=False, names=()):
+        """{name: array} of a cached piece, None when it is not cached. A
+        file that cannot be read whole, or lacks one of `names`, raises:
+        it is never rebuilt over in silence."""
+        p = self._cache_path(part, with_norms)
+        if p is None or not os.path.exists(p):
+            return None
+        try:
+            with np.load(p, allow_pickle=False) as z:
+                out = {name: z[name] for name in z.files}
+        except (OSError, ValueError, EOFError, zipfile.BadZipFile) as e:
+            raise RuntimeError(f"engine cache file {p} is unreadable: {e}") from e
+        missing = sorted(set(names) - set(out))
+        if missing:
+            raise RuntimeError(f"engine cache file {p} lacks {missing}")
+        return out
+
+    def _cache_save(self, part, with_norms=False, **arrays):
+        p = self._cache_path(part, with_norms)
+        if p is None:
+            return
+        tmp = p + f".tmp{os.getpid()}.npz"
+        np.savez(tmp, **arrays)
+        os.replace(tmp, p)
+
+    @staticmethod
+    def _statics_to_json(statics):
+        return json.dumps([list(s) for s in statics])
+
+    @staticmethod
+    def _statics_from_json(s):
+        return [tuple(x if isinstance(x, str) else int(x) for x in row)
+                for row in json.loads(str(s))]
+
+    def _cached_tables(self, build, extra=()):
+        """The tile tables and the arrays named in `extra`: from the
+        cache when there, else build() -> (TileTables, {name: array}),
+        saved."""
+        names = ("docs", "freqs", "tile_list", "list_tile_start", "win_words", "lb_words")
+        cached = self._cache_load("tables", names=names + tuple(extra))
+        if cached is not None:
+            return TileTables(**{n: cached[n] for n in names}), cached
+        t, extra = build()
+        self._cache_save("tables", **{n: getattr(t, n) for n in names}, **extra)
+        return t, extra
+
     def _init_ef(self, index):
         # EF-family tiles: group statics are ("ef", W, WL, T)
-        t = build_tile_tables(index)
+        t, _ = self._cached_tables(lambda: (build_tile_tables(index), {}))
         nvals = t.docs[:, F_NVALS].astype(np.int64)
         ww = np.maximum(t.win_words, 1)
         wl = np.maximum(t.lb_words, 1)
@@ -321,7 +457,8 @@ class ResidentEngine:
             if coll_bv.nbits >= 2**36:
                 raise ValueError(
                     "device engine limit: 8GB per resident stream (i32 WORD "
-                    "cursors in the tile tables)"
+                    "cursors in the tile tables); shard larger indexes by doc range "
+                    "(make_engine, parallel.DocShardedEngine)"
                 )
         return t, (index.docs_sequences.bits_bv.words, index.freqs_sequences.bits_bv.words)
 
@@ -334,7 +471,19 @@ class ResidentEngine:
         interpolative), and ONE word stream for docs and freqs: the index
         bytes, then the resident OptPFor exception patch pairs."""
         self.split = True
-        t, slist_d, gid_d, slist_f, gid_f = build_block_tables(index)
+
+        def build():
+            t, slist_d, gid_d, slist_f, gid_f = build_block_tables(index)
+            return t, {"gid_d": gid_d, "gid_f": gid_f,
+                       "statics_d": np.array(self._statics_to_json(slist_d)),
+                       "statics_f": np.array(self._statics_to_json(slist_f))}
+
+        # the tables are kept as the walk builds them; the patch bases
+        # below are set in memory after the load or save
+        t, extra = self._cached_tables(build, ("gid_d", "gid_f", "statics_d", "statics_f"))
+        slist_d = self._statics_from_json(extra["statics_d"])
+        slist_f = self._statics_from_json(extra["statics_f"])
+        gid_d, gid_f = extra["gid_d"], extra["gid_f"]
         self._empty_statics = ("interp", 4, BLOCK)
         data = np.asarray(index.lists, dtype=np.uint8)
         pad = (-len(data)) % 4
@@ -344,15 +493,21 @@ class ResidentEngine:
         # high<<b) pairs appended to the stream; BF_EX_BASE holds each
         # row's first pair word and those groups become "optp"
         if any(s[0] == "opt" and s[2] > 0 for s in slist_d + slist_f):
-            patch, (base_d, base_f) = build_exception_patches(words, [t.docs, t.freqs])
+            cached = self._cache_load("expatch", names=("patch", "base_d", "base_f"))
+            if cached is not None:
+                patch, base_d, base_f = cached["patch"], cached["base_d"], cached["base_f"]
+            else:
+                patch, (base_d, base_f) = build_exception_patches(words, [t.docs, t.freqs])
+                self._cache_save("expatch", patch=patch, base_d=base_d, base_f=base_f)
             nw0 = np.int64(len(words))
             if nw0 + len(patch) >= 2**31:
                 # the JAX engine drops back to the in-pass Simple16 decode
                 # here, which the port does not carry
                 raise ValueError(
                     "device engine limit: 8GB of resident words (index bytes plus "
-                    "exception patch pairs) for i32 word cursors; larger indexes "
-                    "wait for int64 cursors (ROADMAP queue 1 item 10)"
+                    "exception patch pairs) for i32 word cursors; shard the index by "
+                    "doc range (make_engine, parallel.DocShardedEngine): the in-pass "
+                    "exception decode is not ported (ROADMAP queue 1 item 10)"
                 )
             t.docs[:, BF_EX_BASE] = np.where(base_d >= 0, nw0 + 2 * base_d, 0).astype(np.int32)
             t.freqs[:, BF_EX_BASE] = np.where(base_f >= 0, nw0 + 2 * base_f, 0).astype(np.int32)
@@ -363,7 +518,8 @@ class ResidentEngine:
         elif len(words) >= 2**31:
             raise ValueError(
                 "device engine limit: 8GB per resident stream (i32 word cursors); "
-                "larger indexes wait for int64 cursors (ROADMAP queue 1 item 10)"
+                "shard larger indexes by doc range (make_engine, "
+                "parallel.DocShardedEngine)"
             )
         self.group_statics_d = slist_d
         self.tile_gid_d = gid_d
@@ -373,23 +529,36 @@ class ResidentEngine:
 
     def _ensure_norm_cache(self):
         """Materialize the per-slot BM25-denominator cache (one decode of
-        every tile's docs stream). Lazy: only ranked execution pays it."""
+        every tile's docs stream, or its cache file), then copy it to
+        every other replica. Lazy: only ranked execution pays it."""
         s = self.state
         if s.den_blocks is not None:
             return
-        nt = self.pad_tile
-        utidx = np.arange(nt, dtype=np.int64)
-        groups, gtile_ids, tblk, sent_blk, _ = self._order_groups(
-            utidx, *self._docs_grouping())
-        g0 = np.full(nt + 1, sent_blk, dtype=np.int64)
-        if nt:
-            g0[:nt] = tblk
-        s.tile_gblk0 = torch.from_numpy(g0).to(self.device)
-        s.den_blocks = _norm_cache_step(
-            s.docs_words, s.tiles_docs, s.norm_den,
-            torch.from_numpy(gtile_ids.astype(np.int64)).to(self.device),
-            block_decode.PartLayout(groups), self.num_docs,
-        )
+        cached = self._cache_load("norms", with_norms=True, names=("den_blocks", "tile_gblk0"))
+        if cached is not None:
+            s.tile_gblk0 = torch.from_numpy(cached["tile_gblk0"]).to(self.device)
+            s.den_blocks = torch.from_numpy(cached["den_blocks"]).to(self.device)
+        else:
+            nt = self.pad_tile
+            utidx = np.arange(nt, dtype=np.int64)
+            groups, gtile_ids, tblk, sent_blk, _ = self._order_groups(
+                utidx, *self._docs_grouping())
+            g0 = np.full(nt + 1, sent_blk, dtype=np.int64)
+            if nt:
+                g0[:nt] = tblk
+            s.tile_gblk0 = torch.from_numpy(g0).to(self.device)
+            with _on(self.device):
+                s.den_blocks = _norm_cache_step(
+                    s.docs_words, s.tiles_docs, s.norm_den,
+                    torch.from_numpy(gtile_ids.astype(np.int64)).to(self.device),
+                    block_decode.PartLayout(groups), self.num_docs,
+                )
+            if self.cache_dir:
+                self._cache_save("norms", with_norms=True, den_blocks=s.den_blocks.cpu().numpy(),
+                                 tile_gblk0=g0)
+        for r in (self._replicas or [])[1:]:
+            r.den_blocks = s.den_blocks.to(r.device, copy=True)
+            r.tile_gblk0 = s.tile_gblk0.to(r.device, copy=True)
 
     def _docs_grouping(self):
         """(tile gids, statics) of the docs-order decode groups."""
@@ -414,8 +583,13 @@ class ResidentEngine:
         then the blockmax kernel (rows form); the tile-major metadata
         assembles on the host (the global blocks of tiles [lo, hi) are
         gblk0[lo]:gblk0[hi])."""
-        if self.wmax_blk is not None:
+        if self.wmax_blk is not None or self._attach_blockmax_cache():
             return
+        with _on(self.device):
+            self._blockmax_decode_pass()
+
+    def _blockmax_decode_pass(self):
+        """_ensure_blockmax's pass over every tile."""
         self._ensure_norm_cache()
         nt = self.pad_tile
         tb = self.tile_blocks
@@ -462,6 +636,25 @@ class ResidentEngine:
             dmin_all[gblk0[lo]:gblk0[hi]] = dmin_c.cpu().numpy()[src_c]
         self._install_blockmax(wmax_all, dmax_all, dmin_all, gblk0,
                                *self._short_csr(sdocs, sw, short_list_of_blk))
+
+    # what _install_blockmax sets from the passes' results, as the cache
+    # file holds it (the leading underscore dropped in the file)
+    BLOCKMAX_CACHED = ("wmax_blk", "dmax_blk", "dmin_blk", "gblk0", "tile_of_gblk",
+                       "list_gblk0", "list_wmax", "_kth_vals", "_kth_start", "rank_blk",
+                       "is_short", "_short_keys", "_short_w")
+
+    def _attach_blockmax_cache(self):
+        """Install the block-max tables from the cache (True), or False
+        when they are not cached. A hit launches no kernel."""
+        names = tuple(n.lstrip("_") for n in self.BLOCKMAX_CACHED)
+        cached = self._cache_load("blockmax", with_norms=True, names=names + ("short_stride",))
+        if cached is None:
+            return False
+        for name in self.BLOCKMAX_CACHED:
+            setattr(self, name, cached[name.lstrip("_")])
+        self._short_stride = np.int64(cached["short_stride"])
+        self._derive_prune_tables()
+        return True
 
     def _tile_gblk0(self):
         """First global (tile-major) block of each tile, and the total
@@ -553,6 +746,9 @@ class ResidentEngine:
             self._kth_start = np.zeros(nl + 1, dtype=np.int64)
             self.rank_blk = np.zeros(0, dtype=np.int64)
         self._derive_prune_tables()
+        if self.cache_dir:
+            self._cache_save("blockmax", with_norms=True, short_stride=self._short_stride,
+                             **{n.lstrip("_"): getattr(self, n) for n in self.BLOCKMAX_CACHED})
 
     def build_blockmax(self, collection):
         """Build the pruning metadata from the ORIGINAL collection (the
@@ -567,9 +763,15 @@ class ResidentEngine:
         collection: a BinaryFreqCollection or any iterable of (docs,
         freqs) pairs in index list order; one whose per-list posting
         counts differ from the index's raises ValueError. A no-op when
-        the metadata is already present."""
-        if self.wmax_blk is not None:
+        the metadata is already present or cached (a cache hit launches
+        no kernel)."""
+        if self.wmax_blk is not None or self._attach_blockmax_cache():
             return
+        with _on(self.device):
+            self._blockmax_planes_pass(collection)
+
+    def _blockmax_planes_pass(self, collection):
+        """build_blockmax's pass over the collection's slot planes."""
         doc_plane, freq_plane = self._collection_planes(collection)
         total = len(doc_plane)
         gblk0 = self._tile_gblk0()
@@ -711,12 +913,16 @@ class ResidentEngine:
         terms = np.array([t for q in tf for t, _ in q], dtype=np.int64)
         qmult = np.array([m for q in tf for _, m in q], dtype=np.int64)
         if ranked and len(terms):
-            dfs = self.list_n[terms].astype(_F32)
+            # a shard scores with the collection's idf (query_dfs)
+            src = self.query_dfs if self.query_dfs is not None else self.list_n
+            dfs = src[terms].astype(_F32)
             N = _F32(self.num_docs)
             idf = np.log((N - dfs + _F32(0.5)) / (dfs + _F32(0.5))).astype(_F32)
             qw = qmult.astype(_F32) * np.maximum(_F32(1e-6), idf) * (_F32(1.0) + BM25.k1)
         else:
             qw = np.ones(len(terms), dtype=_F32)
+        if self.term_remap is not None and len(terms):
+            terms = self.term_remap[terms]  # -1: no postings in this index
         return terms, qw, counts
 
     def _term_tiles(self, terms):
@@ -1447,8 +1653,17 @@ class ResidentEngine:
         mode = "and" if ops == ("and",) else "or"
         self._probe_rows = 0
         dir0 = None
+        # the probe's thresholds are a function of the parsed batch, k,
+        # the mode and the probe's constants on this index: cache_dir
+        # replays them across restarts
+        theta_key = self._theta_key(terms, qw, counts, k, mode) if self.cache_dir else None
+        cached = (self._cache_load(theta_key, with_norms=True, names=("theta",))
+                  if theta_key else None)
         t0 = time.perf_counter()
-        if mode == "or":
+        if cached is not None:
+            theta = cached["theta"]
+            probe_theta = theta if np.any(np.isfinite(theta)) else None
+        elif mode == "or":
             # phase 1: score only each term's top blocks by block max; the
             # per-query k-th best is a TRUE achieved partial score, a much
             # tighter threshold than the static single-term bound
@@ -1462,9 +1677,12 @@ class ResidentEngine:
             timings["dir0"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             probe_theta = self._and_prefix_probe(dir0, terms, qw, counts, k, tmax)
+        if theta_key is not None and cached is None:
+            self._cache_save(theta_key, with_norms=True,
+                             theta=probe_theta if probe_theta is not None else np.full(B, -np.inf))
         timings["probe"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        if mode == "and" and probe_theta is None:
+        if mode == "and" and probe_theta is None and dir0 is not None:
             full_dir = dir0  # no heavy rows: the phase-1 directory is final
         else:
             full_dir = self._pruned_directory(terms, qw, counts, k, span_row,
@@ -1482,6 +1700,17 @@ class ResidentEngine:
         return {"plans": plans, "n": B, "k": k, "ops": ops, "timings": timings,
                 "probe_rows": self._probe_rows}
 
+    def _theta_key(self, terms, qw, counts, k, mode):
+        """The cache piece of a pruned batch's probe thresholds: the parsed
+        batch, k, the mode and the probe's constants (the JAX engine's
+        knobs)."""
+        h = hashlib.blake2b(digest_size=12)
+        for a in (terms, qw, counts):
+            h.update(np.ascontiguousarray(a).tobytes())
+        h.update(str((k, mode, self.AND_PROBE_MIN_BLOCKS, self.AND_PROBE_BLOCKS,
+                      self.AND_FIXPOINT_ROUNDS)).encode())
+        return f"theta_{mode}_{h.hexdigest()}"
+
     def execute(self, plan):
         """Upload per-part layouts, dispatch, download results. A plan's
         layout tensors stay on the device after its first execution and
@@ -1491,42 +1720,47 @@ class ResidentEngine:
 
     def dispatch(self, plan):
         """Enqueue every part's device work and its device->host copy
-        without waiting for either."""
+        without waiting for either; with replicas (devices=), part i runs
+        on replica i % len(devices), its download on that replica's
+        device."""
         ranked_ops = any(("or" in p["ops"]) or ("and" in p["ops"]) for p in plan["plans"])
         if ranked_ops:
             self._ensure_norm_cache()
-        dev = self.device
-        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev, non_blocking=True)  # noqa: E731
+        replicas = self._replicas or [self.state]
         pending = []
-        for p in plan["plans"]:
-            cache = p.setdefault("_dev", {})
-            if dev not in cache:
-                cache[dev] = (
-                    put(p["gtile_ids"].astype(np.int64)),
-                    put(p["gtile_f"].astype(np.int64)),
-                    put(p["blkperm"].astype(np.int64)),
+        for pi, p in enumerate(plan["plans"]):
+            state = replicas[pi % len(replicas)]
+            dev = state.device
+            with _on(dev):
+                cache = p.setdefault("_dev", {})
+                if dev not in cache:
+                    cache[dev] = tuple(
+                        torch.from_numpy(p[name].astype(np.int64)).to(dev, non_blocking=True)
+                        for name in ("gtile_ids", "gtile_f", "blkperm"))
+                    p["layout"].upload(dev)
+                    p["join"].upload(dev)
+                d_gt, d_gf, d_bp = cache[dev]
+                fetch16 = "counts" not in p["ops"] and p["fscale"] is not None
+                out = _resident_step(
+                    state, d_gt, d_gf, d_bp, p["layout"], p["join"], num_docs=self.num_docs,
+                    fetch16=fetch16, fscale=p["fscale"] if fetch16 else None,
                 )
-                p["layout"].upload(dev)
-                p["join"].upload(dev)
-            d_gt, d_gf, d_bp = cache[dev]
-            fetch16 = "counts" not in p["ops"] and p["fscale"] is not None
-            out = _resident_step(
-                self.state, d_gt, d_gf, d_bp, p["layout"], p["join"], num_docs=self.num_docs,
-                fetch16=fetch16, fscale=p["fscale"] if fetch16 else None,
-            )
-            if out.is_cuda:
-                # the download starts as soon as this part's compute ends,
-                # overlapping later parts' compute
-                host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-                host.copy_(out, non_blocking=True)
-                out = host
+                if out.is_cuda:
+                    # the download starts as soon as this part's compute
+                    # ends (on its device's stream), overlapping later
+                    # parts' compute
+                    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                    host.copy_(out, non_blocking=True)
+                    out = host
             pending.append((p, out))
         return pending
 
     def collect(self, plan, pending):
-        """Wait for a dispatch() and unpack its results."""
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        """Wait for a dispatch() on every replica's device and unpack its
+        results."""
+        for dev in dict.fromkeys(r.device for r in (self._replicas or [self.state])):
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
         results = [None] * plan["n"]
         for p, out in pending:
             packed = out.numpy()

@@ -34,6 +34,18 @@ class ResidentState:
     def device(self):
         return self.docs_words.device
 
+    def replica(self, device):
+        """A copy of every tensor on `device` (a fresh copy even on this
+        state's own device; docs_words and freqs_words stay one tensor
+        where they are one here)."""
+        moved = {}
+        for f in fields(self):
+            t = getattr(self, f.name)
+            if t is not None and id(t) not in moved:
+                moved[id(t)] = t.to(device, copy=True)
+        return ResidentState(**{f.name: moved.get(id(getattr(self, f.name)))
+                                for f in fields(self)})
+
     def nbytes(self):
         """Bytes of all resident tensors (a tensor named twice counts once)."""
         tensors = {id(t): t for t in (getattr(self, f.name) for f in fields(self)) if t is not None}

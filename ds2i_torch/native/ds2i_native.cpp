@@ -1722,10 +1722,11 @@ struct Cursor {
     void next_geq(uint32_t lb) {
         if (position >= n) return;
         if (lb > block_max(cur_block)) {
-            // linear block_maxs scan (block_posting_list.hpp:124-146)
+            // linear block_maxs scan (block_posting_list.hpp:124-146); past
+            // the last block the list is done (no block_max(blocks) read)
             long b = cur_block + 1;
-            while (b + 1 < blocks && block_max(b) < lb) b++;
-            if (block_max(b) < lb) { position = n; return; }
+            while (b < blocks && block_max(b) < lb) b++;
+            if (b == blocks) { position = n; return; }
             decode_block(b);
             position = b * BS;
         }

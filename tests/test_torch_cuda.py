@@ -589,3 +589,84 @@ def test_join_wrapper_rejects_what_the_kernel_does_not_take(cuda, coll):
         join_part(docs32[:1].contiguous(), w32[:1].contiguous(), lay, nd, False, None)
     with pytest.raises(ValueError, match="fscale"):
         join_part(docs32, w32, lay, nd, True, None)
+
+
+@pytest.mark.parametrize("name", ["opt", "block_optpfor"])
+def test_doc_sharded_on_cuda_equals_single_engine(cuda, coll, name):
+    """DocShardedEngine, 3 shards on the card (devices=[cuda]), against
+    the single CUDA engine: counts exact, top-10 within rtol 1e-3,
+    pruned equal to exhaustive; every shard launches K3."""
+    from ds2i_torch.ops.join import join_part
+    from ds2i_torch.parallel import DocShardedEngine
+
+    index = build(coll, name)
+    wdata = WandData.build(read_sizes(coll), BinaryFreqCollection(coll))
+    queries = read_queries(coll + ".queries")
+    single = ResidentEngine(index, wdata, device=cuda)
+    sharded = DocShardedEngine(index, wdata, num_shards=3, devices=[cuda])
+    assert all(e.device == single.device for e in sharded.engines)
+    np.testing.assert_array_equal(sharded.and_counts(queries), single.and_counts(queries))
+    np.testing.assert_array_equal(sharded.or_counts(queries), single.or_counts(queries))
+    before = join_part.launches
+    exact_and = single.ranked_and(queries, k=10)
+    exact_or = single.ranked_or(queries, k=10)
+    for got, exp in ((sharded.ranked_and(queries, k=10), exact_and),
+                     (sharded.ranked_and(queries, k=10, prune=True), exact_and),
+                     (sharded.ranked_or(queries, k=10), exact_or),
+                     (sharded.wand(queries, k=10), exact_or),
+                     (sharded.maxscore(queries, k=10), exact_or)):
+        for g, e in zip(got, exp):
+            assert len(g) == len(e)
+            if e:
+                np.testing.assert_allclose(g, e, rtol=1e-3)
+    assert join_part.launches > before
+
+
+@pytest.mark.parametrize("name", ["opt", "block_optpfor"])
+def test_two_replicas_on_cuda_equal_one(cuda, coll, name):
+    """ResidentEngine(devices=[cuda, cuda]): two copies of the state, the
+    parts round-robin over them, results equal to one engine's."""
+    index = build(coll, name)
+    wdata = WandData.build(read_sizes(coll), BinaryFreqCollection(coll))
+    queries = read_queries(coll + ".queries")
+    single = ResidentEngine(index, wdata, device=cuda)
+    two = ResidentEngine(index, wdata, devices=[cuda, cuda], max_part_queries=16)
+    assert two._replicas[0].docs_words.data_ptr() != two._replicas[1].docs_words.data_ptr()
+    assert len(two.prepare(queries, k=10, ops=("and",))["plans"]) >= 4
+    assert two.ranked_and(queries, k=10) == single.ranked_and(queries, k=10)
+    assert two.ranked_and(queries, k=10, prune=True) == single.ranked_and(queries, k=10,
+                                                                          prune=True)
+    np.testing.assert_array_equal(two.or_counts(queries), single.or_counts(queries))
+
+
+@pytest.mark.parametrize("name", ["opt", "block_optpfor"])
+def test_engine_cache_round_trip_on_cuda(cuda, coll, name, tmp_path):
+    """cache_dir on the card: the second engine loads the tables, the norm
+    cache, the block-max tables and the probe thresholds, launches K5
+    (blockmax) and the norm cache's decode zero times, and gives the
+    first engine's and_skip and wand results."""
+    from ds2i_torch.ops import blockmax
+
+    index = build(coll, name)
+    c = BinaryFreqCollection(coll)
+    wdata = WandData.build(read_sizes(coll), c)
+    queries = read_queries(coll + ".queries")
+    first = ResidentEngine(index, wdata, device=cuda, cache_dir=str(tmp_path))
+    first.build_blockmax(c)
+    exp = (first.ranked_and(queries, k=10, prune=True), first.wand(queries, k=10))
+    second = ResidentEngine(index, wdata, device=cuda, cache_dir=str(tmp_path))
+    k5, dec = blockmax.blockmax_rows.launches, sum(w.launches for w in (
+        decode_pair, *WRAPPERS.values()))
+    second._ensure_norm_cache()
+    second.build_blockmax(c)
+    plan = second.prepare(queries, k=10, ops=("and",), prune=True)
+    assert plan["probe_rows"] == 0  # the thresholds came from the cache
+    assert blockmax.blockmax_rows.launches == k5
+    assert sum(w.launches for w in (decode_pair, *WRAPPERS.values())) == dec
+    got = (second.collect(plan, second.dispatch(plan)), second.wand(queries, k=10))
+    assert [second._topk_list(r[3]) for r in got[0]] == exp[0]
+    assert got[1] == exp[1]
+    for field in BLOCKMAX_FIELDS:
+        np.testing.assert_array_equal(getattr(second, field), getattr(first, field),
+                                      err_msg=field)
+    _same_bits(second.state.den_blocks, first.state.den_blocks)

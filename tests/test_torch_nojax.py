@@ -4,7 +4,9 @@ module, import the port, serve a CPU ranked_and over an `opt` index
 (pair mode), a `block_optpfor` index and a `block_mixed` index made from
 it by the port's rebuild_mixed (split mode) against the numpy oracle
 (and, over the block indexes, the pruned ranked_and too; every pass
-joins through ds2i_torch.ops.join), and check neither loaded. Each
+joins through ds2i_torch.ops.join), save and load the block_optpfor
+index through the port's tools and serve it from a 2-shard
+DocShardedEngine made by make_engine, and check neither loaded. Each
 module a caller may import first loads in a fresh interpreter (no
 import cycle breaks it). And no file of the port, nor
 chip_smoke.py, names ds2i_tpu in an import."""
@@ -48,7 +50,15 @@ _SCRIPT = textwrap.dedent("""
     import ds2i_torch.ops.join
     import ds2i_torch.ops.pair_decode
     import ds2i_torch.tools.pass_timeline
-    from ds2i_torch.engine import ResidentEngine
+    import ds2i_torch.index.verify
+    import ds2i_torch.tools.create_freq_index
+    import ds2i_torch.tools.create_wand_data
+    import ds2i_torch.tools.gen_collection
+    import ds2i_torch.tools.queries
+    from ds2i_torch.engine import ResidentEngine, make_engine
+    from ds2i_torch.parallel import DocShardedEngine
+    from ds2i_torch.queries import QUERY_OPS
+    from ds2i_torch.tools.common import load_index, save_index
     from ds2i_torch.host import (
         BinaryFreqCollection, GlobalParameters, WandData, generate_collection,
         make_index_type, ranked_and_query, read_queries, read_sizes, rebuild_mixed,
@@ -70,6 +80,12 @@ _SCRIPT = textwrap.dedent("""
             for docs, freqs in c:
                 b.add_posting_list(len(docs), docs, freqs, int(np.asarray(freqs).sum()))
             index = b.build()
+            if name == "block_optpfor":
+                save_index(index, base + ".idx")
+                loaded = load_index(base + ".idx", name)
+                sharded = make_engine(loaded, wdata, limit=len(loaded.lists) // 2, device="cpu")
+                assert isinstance(sharded, DocShardedEngine)
+                served = sharded.ranked_and(queries, k=10)
         eng = ResidentEngine(index, wdata, device="cpu")
         assert eng.split == (name != "opt")
         got = eng.ranked_and(queries, k=10)
@@ -85,6 +101,11 @@ _SCRIPT = textwrap.dedent("""
                 assert len(pruned[i]) == len(e), (name, q)
                 if e:
                     np.testing.assert_allclose(pruned[i], e, rtol=1e-3)
+            if name == "block_optpfor":
+                assert len(served[i]) == len(e), q
+                if e:
+                    np.testing.assert_allclose(served[i], e, rtol=1e-3)
+                assert QUERY_OPS["ranked_and"](index, wdata, 10)(q) == e
     loaded = sorted(m for m in sys.modules if blocked(m))
     assert not loaded, loaded
     print("NOJAX_OK", len(queries))
@@ -106,7 +127,11 @@ def test_port_imports_and_serves_without_jax(tmp_path):
     "ds2i_torch.kernels", "ds2i_torch.ops.block_decode", "ds2i_torch.ops.pair_decode",
     "ds2i_torch.ops.blockmax", "ds2i_torch.ops.join", "ds2i_torch.engine",
     "ds2i_torch.engine.block_tiles", "ds2i_torch.host", "ds2i_torch.index.hybrid",
-    "ds2i_torch.utils.extsort", "ds2i_torch.tools.pass_timeline",
+    "ds2i_torch.utils.extsort", "ds2i_torch.tools.pass_timeline", "ds2i_torch.index.mapper",
+    "ds2i_torch.index.verify", "ds2i_torch.queries", "ds2i_torch.tools.common",
+    "ds2i_torch.tools.gen_collection", "ds2i_torch.tools.create_freq_index",
+    "ds2i_torch.tools.create_wand_data", "ds2i_torch.tools.queries",
+    "ds2i_torch.parallel.doc_sharded", "ds2i_torch.parallel",
 ])
 def test_module_imports_first(tmp_path, module):
     """chip_smoke.py imports ds2i_torch.kernels, then ds2i_torch.ops: each
@@ -146,7 +171,11 @@ def test_no_file_of_the_port_imports_the_jax_package():
     for root, _, names in os.walk(os.path.join(_REPO, "ds2i_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 40
-    for module in ("index/hybrid.py", "utils/extsort.py", "ops/join.py", "tools/pass_timeline.py"):
+    for module in ("index/hybrid.py", "utils/extsort.py", "ops/join.py", "tools/pass_timeline.py",
+                   "index/mapper.py", "index/verify.py", "queries/topk.py", "queries/wand.py",
+                   "queries/maxscore.py", "tools/common.py", "tools/gen_collection.py",
+                   "tools/create_freq_index.py", "tools/create_wand_data.py", "tools/queries.py",
+                   "parallel/doc_sharded.py", "engine/__init__.py"):
         assert os.path.join(_REPO, "ds2i_torch", module) in files
     bad = {os.path.relpath(f, _REPO): hits for f in files if (hits := _names_ds2i_tpu(f))}
     assert not bad, bad
