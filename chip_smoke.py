@@ -7,9 +7,10 @@ with its 35k-query log, first over a partitioned Elias-Fano (`opt`)
 index in pair mode, then over a `block_optpfor` index in split mode
 (bench.py's default index type), exhaustive and then block-max pruned
 (bench.py's default op, and_skip), then over the other block codecs:
-`block_varint`, `block_qmx` and `block_mixed`; then the front door: the
-command-line tools, doc-range shards, make_engine, replicas and
-cache_dir.
+`block_varint`, `block_qmx` and `block_mixed`; block_optpfor past its
+resident word limit, the exceptions decoded in the pass (K1s); then the
+WSDM'15 tool chain beside the front door: the command-line tools,
+doc-range shards, make_engine, replicas and cache_dir.
 
   1. card name and power limit (nvidia-smi), torch and CUDA versions
   2. build the CUDA kernels from csrc/ (one nvcc per source, all at
@@ -63,6 +64,17 @@ cache_dir.
   9. blockmax phase: the kernel against blockmax_rows_torch bit for bit
      in both forms over every block, timed through the wrapper, alone
      and plain, beside its bound by bytes
+  9b. block_optpfor past its resident word limit (inpass_path: the
+     engine's RESIDENT_WORD_LIMIT lowered for that engine only, so no
+     "optp" group remains and the groups with exceptions stay "opt",
+     kernel optpfor_s16_decode, K1s): a block path (the kernel phase,
+     K1s in every mode against its plain version and timed beside its
+     bound: slot words, Simple16 words, fields, what it writes; the
+     exhaustive main path, counts set to 0 just before it, K1s launched;
+     the part phase with K1s's chain line; the oracle); every row with
+     exceptions against the patched engine's K1 bit for bit; its and_skip
+     path; the full log, exhaustive and and_skip, equal to the patched
+     engine's query by query; µs/query of both engines in turns
   10. block_interpolative: a smaller oracle-only run (100 queries)
   11. block_varint (kernels varint_decode and interp_decode), block_qmx
      (qmx_decode and interp_decode) and block_mixed (rebuild_mixed over
@@ -71,7 +83,13 @@ cache_dir.
      interp_decode): each a block path as above (a kernel first met here
      timed) and its and_skip path; on block_qmx and block_mixed with the
      second engine's decode pass
-  12. the front door (front_door_phase, at the same 1x collection; every
+  12. the WSDM'15 tool chain (wsdm_phase), each tool in its own process:
+     profile_queries and profile_decoding --engine resident on the card
+     (its stats line shows K1s launched), dec_time_regression on the
+     device profile, optimal_hybrid_index --check under block_optpfor's
+     bytes (beside it, step 12b); the hybrid it built served on the card,
+     equal to block_optpfor on the whole log
+  12b. the front door (front_door_phase, at the same 1x collection; every
      count set to 0 just before it and read just after, into each JSON
      entry's front_door_launches): the quick-start tools, each in its own
      process as a user runs them (create_freq_index --check for opt and
@@ -520,6 +538,31 @@ def interp_code_words(eng, part, docs32, freq32):
     return out
 
 
+def s16_code_words(eng):
+    """{("s16", True): docs, ("s16", False): freqs}: each tile's Simple16
+    exception stream in words, per stream (0 for rows without
+    exceptions): the words its 2 n_ex values take, walked from the index
+    bytes as the tile walk walks them, and one more where BF_EX_BOFF
+    splits them (the function needs no value past 2 n_ex: positions
+    and highs of exceptions e < n_ex lie below it)."""
+    from ds2i_torch.engine.block_tiles import (
+        BF_EX_BOFF, BF_EX_W0, BF_NEX, KIND_OPT, _s16_words,
+    )
+    from ds2i_torch.engine.tiles import F_KIND
+
+    data = np.asarray(eng.index.lists, dtype=np.uint8)
+    data = np.concatenate([data, np.zeros(8, np.uint8)])
+    out = {}
+    for is_docs, fields in ((True, eng.tiles.docs), (False, eng.tiles.freqs)):
+        f = fields.astype(np.int64)
+        words = np.zeros(eng.pad_tile + 1, np.int64)
+        for t in np.flatnonzero((f[:, F_KIND] == KIND_OPT) & (f[:, BF_NEX] > 0)):
+            pos = 4 * int(f[t, BF_EX_W0]) + int(f[t, BF_EX_BOFF]) // 8
+            words[t] = _s16_words(data, pos, 2 * int(f[t, BF_NEX])) + (f[t, BF_EX_BOFF] > 0)
+        out["s16", is_docs] = words
+    return out
+
+
 def qmx_payload_bytes(eng, rows, fields, NI, S):
     """Per QMX row (fields of the rows' stream), the payload bytes its
     decode reads: ADV_OF_TYPE of each of its first min(ninst, NI)
@@ -559,7 +602,10 @@ def block_launch_bytes(eng, launch, gtile_host, mode, code_words):
     slot's block and slot; for K8, once a launch, the lane-table words of
     the types its instances take (min(INTS_OF_TYPE, 128) lane entries and
     one meta word a type); each output block written (out, and w for
-    weights)."""
+    weights). K1s (the exceptions decoded in the pass) reads BF_W0,
+    BF_BOFF, F_NVALS, BF_B, BF_NEX, BF_EX_W0 and BF_EX_BOFF (docs also
+    F_BASE), K1's slot words, and the Simple16 words of its exception
+    stream (code_words[("s16", is_docs)], s16_code_words)."""
     from ds2i_torch.codecs.qmx import INTS_OF_TYPE
     from ds2i_torch.engine.block_tiles import BF_B, BF_BOFF, BF_NEX
     from ds2i_torch.engine.tiles import F_NVALS
@@ -582,6 +628,12 @@ def block_launch_bytes(eng, launch, gtile_host, mode, code_words):
             words = (fields[r, BF_BOFF] + 128 * bs + 31) // 32 if bs else np.zeros(len(r), np.int64)
             npatch = np.minimum(fields[r, BF_NEX], p2) if p2 else np.zeros(len(r), np.int64)
             nbytes += 4 * nf * len(r) + 4 * int(words.sum()) + 8 * int(npatch.sum())
+        elif launch.kernel == "optpfor_s16":
+            nf = 7 + (1 if is_docs else 0)
+            bs = min(p1, 32)
+            words = (fields[r, BF_BOFF] + 128 * bs + 31) // 32 if bs else np.zeros(len(r), np.int64)
+            nbytes += (4 * nf * len(r) + 4 * int(words.sum())
+                       + 4 * int(code_words[("s16", is_docs)][r].sum()))
         elif launch.kernel == "varint":
             nf = 4 + (1 if is_docs else 0)
             nbytes += 4 * nf * len(r) + 9 * int(np.minimum(fields[r, BF_B], p1).sum())
@@ -655,6 +707,8 @@ def block_kernel_phase(eng, index, tag, timed):
             raise AssertionError(f"list {li}: CUDA block decode differs from index.decode_list")
     log(f"{tag} kernel phase: {len(lists)} random lists equal index.decode_list")
     code_words = interp_code_words(eng, part, docs_h, freq_h)
+    if any(lay.launch("optpfor_s16", d, dev).n_cta for d in (True, False)):
+        code_words.update(s16_code_words(eng))
 
     docs_buf = torch.empty((lay.nb_d, 32), dtype=torch.int32, device=dev)
     w_buf = torch.empty((lay.nb_d, 32), dtype=torch.float32, device=dev)
@@ -717,12 +771,16 @@ def block_kernel_phase(eng, index, tag, timed):
             f"kernel {ms:.4f} ms through the wrapper, {fmt_ms(dev_ms)} alone, plain PyTorch "
             f"{plain_ms:.4f} ms (median of 5); bound {bound_ms:.4f} ms by {bound_by} "
             f"({nbytes} bytes)")
+        if kernel == "optpfor_s16":
+            log(f"{tag} kernel phase: {wrapper.__name__}: rows with exceptions decoded in the "
+                f"pass: {rows} of both streams")
         name = wrapper.__name__
         entries.append({
             "name": name,
             "route": "cuda",
             "source": f"ds2i_torch/csrc/{name}.cu",
             "replaces": {"optpfor_decode": "ds2i_tpu/ops/optpfor_device.py:78",
+                         "optpfor_s16_decode": "ds2i_tpu/ops/optpfor_device.py:147",
                          "varint_decode": "ds2i_tpu/ops/varint_device.py:24",
                          "qmx_decode": "ds2i_tpu/ops/qmx_device.py:55",
                          "interp_decode": "ds2i_tpu/ops/interp_device.py:71"}[name],
@@ -1124,9 +1182,10 @@ def and_skip_path(eng, index, coll, wdata, queries, exhaustive_plan, exhaustive_
     the exhaustive ranked_and of the same engine; the decode pass
     (_ensure_blockmax, rows form) on a second engine (second_engine), every
     pruning table byte-equal to the collection pass's; wand and maxscore
-    against ranked_or. Returns the decode-pass engine (or None) and
+    against ranked_or. Returns the decode-pass engine (or None),
     blockmax's JSON entry (`entry` takes the launches of this path; the
-    rest is filled by blockmax_phase)."""
+    rest is filled by blockmax_phase) and the last timed pass's
+    results."""
     import torch
 
     from ds2i_torch.ops import blockmax
@@ -1186,7 +1245,7 @@ def and_skip_path(eng, index, coll, wdata, queries, exhaustive_plan, exhaustive_
             raise AssertionError(f"{tag}: {op} differs from ranked_or on queries {bad[:10]}")
     log(f"{tag} and_skip: wand and maxscore equal ranked_or on {len(qs)} queries "
         f"({time.perf_counter() - t0:.1f} s)")
-    return dec, entry
+    return dec, entry, res
 
 
 def blockmax_phase(eng, dec, coll, entry):
@@ -1254,6 +1313,12 @@ def opt_prune_phase(eng, queries):
 
 
 
+def kernel_of_entry(entry):
+    """The ops/block_decode.py KERNELS name of a block kernel's JSON entry
+    (its wrapper's name less "_decode")."""
+    return entry["name"][:-len("_decode")]
+
+
 def block_path(index, wdata, queries, entries, tag, join_entry=None):
     """A split-mode main path: the engine, the block kernel phase over
     every tile (each kernel bit-equal to its plain version in every mode;
@@ -1269,7 +1334,7 @@ def block_path(index, wdata, queries, entries, tag, join_entry=None):
 
     eng = start_engine(index, wdata)
     new, code_words = block_kernel_phase(eng, index, tag, timed=set(block_decode.WRAPPERS)
-                                         - {e["name"].split("_")[0] for e in entries})
+                                         - {kernel_of_entry(e) for e in entries})
     entries += new
     part = eng.all_tiles_part()
     wrappers = [w for k, w in block_decode.WRAPPERS.items()
@@ -1277,50 +1342,183 @@ def block_path(index, wdata, queries, entries, tag, join_entry=None):
     entry_of = {e["name"]: e for e in new}
     plan, res = main_path(eng, queries, [(entry_of.get(w.__name__), w) for w in wrappers], tag,
                           join_entry=join_entry)
-    part_kernel_phase(eng, plan, code_words, tag,
-                      chain={e["name"].split("_")[0] for e in new})
+    part_kernel_phase(eng, plan, code_words, tag, chain={kernel_of_entry(e) for e in new})
     oracle_phase(eng, index, wdata, queries, ORACLE_QUERIES, tag)
     return eng, plan, res, wrappers
+
+
+def inpass_engine_limit(index):
+    """The resident word limit just above a block index's own words: its
+    exception patch pairs pass it, so an engine built under it decodes
+    the exceptions in the pass (K1s), as past 2^31 words."""
+    n = len(np.asarray(index.lists))
+    return (n + (-n) % 4 + 8) // 4 + 1
+
+
+def inpass_vs_patched(eng, patched, tag):
+    """Every tile decoded by both engines' all-tiles part on the card
+    (BM25 docs32 and w32, and the raw freqs): the tiles of the in-pass
+    engine's ("opt", b, E > 0) groups, K1s's rows, equal the patched
+    engine's ("optp", K1 with resident patches) bit for bit. Returns the
+    rows with exceptions of each stream."""
+    import torch
+
+    from ds2i_torch.ops.block_decode import KERNELS, WRAPPERS, split_decode_part
+
+    out, rows = [], {}
+    for e in (eng, patched):
+        e._ensure_norm_cache()
+        s, dev, nd = e.state, e.device, e.num_docs
+        part = e.all_tiles_part()
+        gt, gf, bp, lay = part[:4]
+        docs32, w32 = split_decode_part(s.docs_words, s.tiles_docs, s.tiles_freqs, gt, gf, bp,
+                                        lay, nd, "bm25", s.den_blocks, s.tile_gblk0)
+        freq = torch.empty((lay.nb_f, 32), dtype=torch.int32, device=dev)
+        for kernel in KERNELS:
+            launch = lay.launch(kernel, False, dev)
+            if launch.n_cta:
+                WRAPPERS[kernel](launch, s.docs_words, s.tiles_freqs, gf, "freqs", nd, freq)
+        out.append((part, docs32, w32, freq))
+    torch.cuda.synchronize()
+    blk = torch.arange(4, device=eng.device)
+    for is_docs, gid, statics in ((True, eng.tile_gid_d, eng.group_statics_d),
+                                  (False, eng.tile_gid_f, eng.group_statics_f)):
+        ex = np.array([st[0] == "opt" and st[2] > 0 for st in statics])[gid]
+        tiles = np.flatnonzero(ex[:eng.pad_tile])
+        rows[is_docs] = len(tiles)
+        got = []
+        for part, docs32, w32, freq in out:
+            tblk = torch.from_numpy(np.asarray(part.tblk if is_docs else part.tblk_f)[tiles])
+            idx = (tblk.to(eng.device)[:, None] + blk[None, :]).reshape(-1)
+            got.append((docs32[idx], w32[idx]) if is_docs else (freq[idx],))
+        if not all(_same_bits(a, b) for a, b in zip(*got)):
+            raise AssertionError(f"{tag}: K1s differs from the patched engine's K1 on the "
+                                 f"{'docs' if is_docs else 'freqs'} rows with exceptions")
+    full = {}
+    for is_docs, gid, statics in ((True, eng.tile_gid_d, eng.group_statics_d),
+                                  (False, eng.tile_gid_f, eng.group_statics_f)):
+        opt = np.array([st[0] in ("opt", "optp") and st[-1] == 128 for st in statics])
+        full[is_docs] = int(opt[gid[:eng.pad_tile]].sum())
+    log(f"{tag}: K1s == the patched engine's K1 (\"optp\") bit for bit on every row with "
+        f"exceptions: {rows[True]} docs rows (docs32, BM25 w32) of {full[True]} full OptPFor "
+        f"blocks, {rows[False]} freqs rows of {full[False]}")
+    return rows
+
+
+def inpass_path(index, coll, wdata, queries, entries, patched, patched_plan, patched_res,
+                patched_skip):
+    """The block_optpfor engine past its resident word limit (the limit
+    lowered for that engine only: inpass_engine_limit): no "optp" group
+    remains and the OptPFor groups with exceptions decode in the pass,
+    by K1s. A block path (block_path: the kernel phase over every tile,
+    K1s timed into its new JSON entry; the exhaustive main path with every
+    count set to 0 just before it; the part phase with K1s's chain line;
+    the oracle), the rows with exceptions against the patched engine's
+    (inpass_vs_patched), its and_skip path (and_skip_path, no second
+    engine); the full log, exhaustive and and_skip, against the patched
+    engine's query by query; then µs/query of both engines in turns
+    (patched, in-pass, in-pass, patched), exhaustive and and_skip."""
+    from ds2i_torch.engine import resident
+    from ds2i_torch.ops import block_decode
+
+    tag = "block_optpfor in-pass"
+    t0 = time.perf_counter()
+    limit, old = inpass_engine_limit(index), resident.RESIDENT_WORD_LIMIT
+    resident.RESIDENT_WORD_LIMIT = limit
+    try:
+        eng, plan, res, wrappers = block_path(index, wdata, queries, entries, tag)
+    finally:
+        resident.RESIDENT_WORD_LIMIT = old
+    statics = eng.group_statics_d + eng.group_statics_f
+    npatch = patched.state.docs_words.numel() - eng.state.docs_words.numel()
+    if any(st[0] == "optp" for st in statics) or not any(st[0] == "opt" and st[2] > 0
+                                                         for st in statics):
+        raise AssertionError(f"{tag}: the engine kept no in-pass group or left an \"optp\" one")
+    if block_decode.optpfor_s16_decode not in wrappers:
+        raise AssertionError(f"{tag}: the main path did not run K1s")
+    log(f"{tag}: resident word limit lowered to {limit} for this engine (index words "
+        f"{eng.state.docs_words.numel()}, patch words {npatch}): "
+        f"{sum(st[0] == 'opt' and st[2] > 0 for st in statics)} in-pass groups, no \"optp\"")
+    inpass_vs_patched(eng, patched, tag)
+    _, _, skip = and_skip_path(eng, index, coll, wdata, queries, plan, res, tag, wrappers,
+                               second_engine=False)
+    for label, got, exp in (("exhaustive", res, patched_res), ("and_skip", skip, patched_skip)):
+        bad = topk_mismatches([eng._topk_list(r[3]) for r in got],
+                              [patched._topk_list(r[3]) for r in exp])
+        if bad:
+            raise AssertionError(f"{tag}: {label} differs from the patched engine on queries "
+                                 f"{bad[:10]}")
+    log(f"{tag}: the full log equals the patched engine's query by query, exhaustive and "
+        f"and_skip (equal lengths, rtol {RTOL}; {len(queries)} queries each)")
+    skip_plans = [e.prepare(queries, k=10, ops=("and",), prune=True) for e in (patched, eng)]
+    for label, plans in (("exhaustive ranked_and", (patched_plan, plan)), ("and_skip", skip_plans)):
+        us = {"patched": [], "in-pass": []}
+        for name in ("patched", "in-pass", "in-pass", "patched"):
+            e, p = (patched, plans[0]) if name == "patched" else (eng, plans[1])
+            us[name].append(pass_us(e, p, len(queries)))
+        log(f"{tag}: {label}: {statistics.mean(us['in-pass']):.4f} µs/query in-pass "
+            f"({', '.join(f'{x:.4f}' for x in us['in-pass'])}) against "
+            f"{statistics.mean(us['patched']):.4f} patched "
+            f"({', '.join(f'{x:.4f}' for x in us['patched'])}), medians of 5 passes, in turns")
+    log(f"{tag} phase: {time.perf_counter() - t0:.1f} s")
 
 
 class Tools:
     """Tools run as a user runs them, `python -m ds2i_torch.tools.<tool>
     arguments` from the repository's root, each in its own process; a
     wave of them starts at once and runs while this process goes on (the
-    queries tool gets --device tool_device when given). kill() stops any
-    still running."""
+    queries tool gets --device tool_device when given). A thread a tool
+    reads its output as it comes and notes when it exits, so a tool never
+    waits on a full pipe and its seconds are its own, however long this
+    process is busy. kill() stops any still running."""
 
-    def __init__(self, tool_device=None):
+    def __init__(self, tool_device=None, tag="front door"):
         self.tool_device = tool_device
+        self.tag = tag
         self.procs = []
+
+    @staticmethod
+    def _drain(proc, box):
+        box["out"], box["err"] = proc.communicate()
+        box["exit"] = time.perf_counter()
 
     def start(self, cmds):
         """Start every tool of `cmds` ({label: [tool, arguments...]})."""
+        import threading
+
         env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
-        wave = {}
+        t0, wave = time.perf_counter(), {}
         for label, (tool, *args) in cmds.items():
             if tool == "queries" and self.tool_device is not None:
                 args += ["--device", self.tool_device]
-            wave[label] = subprocess.Popen(
+            proc = subprocess.Popen(
                 [sys.executable, "-m", f"ds2i_torch.tools.{tool}", *map(str, args)], cwd=HERE,
                 env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            self.procs.append(wave[label])
-        return time.perf_counter(), wave
+            self.procs.append(proc)
+            box = {}
+            reader = threading.Thread(target=Tools._drain, args=(proc, box), daemon=True)
+            reader.start()
+            wave[label] = (proc, reader, box)
+        return t0, wave, self.tag
 
     @staticmethod
     def wait(started):
-        """Wait for a started wave; every tool must exit 0. Returns
-        {label: (seconds from the wave's start to its exit, its stats
-        lines)}."""
-        t0, wave = started
+        """Wait for a started wave; every tool must exit 0 within
+        TOOL_TIMEOUT_S of the wait. Returns {label: (seconds from the
+        wave's start to its exit, its stats lines)}."""
+        t0, wave, tag = started
         out = {}
-        for label, proc in wave.items():
-            stdout, stderr = proc.communicate(timeout=TOOL_TIMEOUT_S)
+        for label, (proc, reader, box) in wave.items():
+            reader.join(TOOL_TIMEOUT_S)
+            if reader.is_alive():
+                proc.kill()
+                reader.join()
+                raise AssertionError(f"{label} ran past {TOOL_TIMEOUT_S} s")
             if proc.returncode != 0:
-                raise AssertionError(f"{label} exited {proc.returncode}:\n{stderr[-3000:]}")
-            out[label] = (time.perf_counter() - t0,
-                          [json.loads(x) for x in stdout.splitlines() if x.startswith("{")])
-            log(f"front door: {label}: exit 0 within {out[label][0]:.1f} s of its wave's start; "
+                raise AssertionError(f"{label} exited {proc.returncode}:\n{box['err'][-3000:]}")
+            out[label] = (box["exit"] - t0,
+                          [json.loads(x) for x in box["out"].splitlines() if x.startswith("{")])
+            log(f"{tag}: {label}: exit 0 after {out[label][0]:.1f} s from its wave's start; "
                 f"stats lines: {json.dumps(out[label][1])}")
         return out
 
@@ -1641,6 +1839,111 @@ def front_door_phase(coll, wdata, queries, index, entries, tool_device=None):
         e["front_door_launches"] = counts[wrapper_of.get(e["name"], e["name"])]
 
 
+WSDM_FRACTION = 0.05  # of the lists profile_decoding samples
+
+
+def wsdm_tools(f, base, budget):
+    """The WSDM'15 chain's tools, in three waves (each needs the one
+    before): profile_queries (ranked_and over the log, closed form) and
+    profile_decoding --engine resident on the card; dec_time_regression
+    on the device profile; optimal_hybrid_index --check with a space
+    budget of the block_optpfor index's bytes."""
+    idx = ["block_optpfor"]
+    return (
+        {"profile_queries": ["profile_queries", *idx, "ranked_and", f("idx.bin"), f("wand.bin"),
+                             "--queries", base + ".queries", "--out", f("blockstats.tsv")],
+         "profile_decoding --engine resident": [
+             "profile_decoding", *idx, f("idx.bin"), WSDM_FRACTION, "--out", f("prof.jsonl"),
+             "--engine", "resident"]},
+        {"dec_time_regression": ["dec_time_regression", f("prof.jsonl"), "--out",
+                                 f("weights.tsv")]},
+        {"optimal_hybrid_index --check": [
+            "optimal_hybrid_index", *idx, f("weights.tsv"), f("blockstats.tsv"), f("idx.bin"),
+            f("lambdas.bin"), budget, f("mixed.bin"), "--check", base]},
+    )
+
+
+def wsdm_phase(index, wdata, queries, exact_and, beside):
+    """The WSDM'15 tool chain on the card, each tool in its own process
+    as a user runs it (wsdm_tools), over the block_optpfor index and the
+    wand data saved by the port's tools.common; files under
+    build/ds2i_wsdm/, removed after. Beside the first wave, the closed
+    form of the block stats in this process (profile_queries.fast_profile,
+    its dump byte-equal to the tool's file); beside the third, the long
+    pole (rebuild_mixed and the collection check in Python), `beside()`.
+    Then the hybrid the chain built, loaded back and served by a
+    ResidentEngine on the card: exhaustive ranked_and over the whole log
+    equal to block_optpfor's (exact_and) query by query, its kernels'
+    launches counted. profile_decoding's stats line must show K1s
+    launched."""
+    import io
+    import shutil
+
+    from ds2i_torch.engine import ResidentEngine
+    from ds2i_torch.tools.common import load_index, save_index, save_wand_data
+    from ds2i_torch.tools.profile_queries import fast_profile
+
+    t_phase = time.perf_counter()
+    out = os.path.join(HERE, "build", "ds2i_wsdm")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    f = lambda name: os.path.join(out, name)  # noqa: E731
+    save_index(index, f("idx.bin"))
+    save_wand_data(wdata, f("wand.bin"))
+    waves = wsdm_tools(f, collection_base(), len(index.lists))
+    tools = Tools(tag="wsdm")
+    seconds = {}
+    try:
+        wave = tools.start(waves[0])
+        expected = io.StringIO()
+        fast_profile(index, queries, 1).dump(expected)
+        done = Tools.wait(wave)
+        if open(f("blockstats.tsv")).read() != expected.getvalue():
+            raise AssertionError("profile_queries' block stats differ from fast_profile's")
+        (prof,) = done["profile_decoding --engine resident"][1]
+        if prof.get("launches", {}).get("optpfor_s16_decode", 0) <= 0 or prof["groups"] <= 0:
+            raise AssertionError(f"profile_decoding timed no K1s group: {prof}")
+        nrec = sum(1 for _ in open(f("prof.jsonl")))
+        log(f"wsdm: profile_queries == fast_profile ({len(expected.getvalue())} bytes); "
+            f"profile_decoding: {nrec} records, {prof['groups']} groups timed on the card "
+            f"{prof['groups_by_kernel']}, launches {prof['launches']}")
+        seconds.update({k: v[0] for k, v in done.items()})
+        done = Tools.wait(tools.start(waves[1]))
+        seconds.update({k: v[0] for k, v in done.items()})
+        log(f"wsdm: weights {open(f('weights.tsv')).read().splitlines()}")
+        wave = tools.start(waves[2])
+        t_beside = time.perf_counter()
+        beside()
+        t_beside = time.perf_counter() - t_beside
+        done = Tools.wait(wave)
+        seconds.update({k: v[0] for k, v in done.items()})
+        lines = done["optimal_hybrid_index --check"][1]
+        if not any(x.get("type") == "block_mixed" and x.get("size", 0) > 0 for x in lines):
+            raise AssertionError(f"optimal_hybrid_index printed no block_mixed size: {lines}")
+        mixed = load_index(f("mixed.bin"), "block_mixed")
+    finally:
+        tools.kill()
+        shutil.rmtree(out, ignore_errors=True)
+    log(f"wsdm: each tool's seconds from its wave's start to its exit "
+        f"{ {k: round(v, 1) for k, v in seconds.items()} }; beside the third wave "
+        f"{t_beside:.1f} s of this process's work")
+    counts = {w: w.launches for w in kernel_wrappers()}
+    t0 = time.perf_counter()
+    eng = start_engine(mixed, wdata)
+    kinds = sorted({st[0] for st in eng.group_statics_d + eng.group_statics_f})
+    got = eng.ranked_and(queries, k=10)
+    bad = topk_mismatches(got, exact_and)
+    if bad:
+        raise AssertionError(f"wsdm: the hybrid's ranked_and differs from block_optpfor's on "
+                             f"queries {bad[:10]}")
+    launched = {w.__name__: w.launches - n for w, n in counts.items() if w.launches > n}
+    log(f"wsdm: the hybrid ({len(mixed.lists)} bytes against block_optpfor's "
+        f"{len(index.lists)}; group kinds {kinds}) served on the card: exhaustive ranked_and "
+        f"equal to block_optpfor's on all {len(queries)} queries (equal lengths, rtol {RTOL}); "
+        f"launches {launched} ({time.perf_counter() - t0:.1f} s)")
+    log(f"wsdm phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     import torch
 
@@ -1685,10 +1988,17 @@ def main():
                                           "block_optpfor", join_entry)
     bm_entry = {"name": "blockmax", "route": "cuda", "source": "ds2i_torch/csrc/blockmax.cu",
                 "replaces": "ds2i_tpu/engine/resident.py:358"}
-    dec, _ = and_skip_path(eng, opt_index, coll, wdata, queries, plan, res, "block_optpfor",
-                           wrappers, entry=bm_entry)
+    dec, _, skip_res = and_skip_path(eng, opt_index, coll, wdata, queries, plan, res,
+                                     "block_optpfor", wrappers, entry=bm_entry)
     blockmax_phase(eng, dec, coll, bm_entry)
-    del eng, dec, plan, res
+    del dec
+    exact_and = [eng._topk_list(r[3]) for r in res]
+
+    # block_optpfor past its resident word limit: the exceptions decoded
+    # in the pass (K1s), against the patched engine above
+    inpass_path(opt_index, coll, wdata, queries, block_entries, eng, plan, res, skip_res)
+    del eng, plan, res, skip_res
+    torch.cuda.empty_cache()
 
     # block_interpolative: oracle only
     index = build_index(coll, "block_interpolative")
@@ -1714,14 +2024,17 @@ def main():
         torch.cuda.empty_cache()
 
     by_name = {e["name"]: e for e in block_entries}
-    order = ("optpfor_decode", "varint_decode", "qmx_decode", "interp_decode")
+    order = ("optpfor_decode", "optpfor_s16_decode", "varint_decode", "qmx_decode",
+             "interp_decode")
     if sorted(by_name) != sorted(order):
         raise AssertionError(f"block kernels timed: {sorted(by_name)}, expected {sorted(order)}")
     entries = [pair_entry, *(by_name[n] for n in order), bm_entry, join_entry]
 
+    # the WSDM'15 tool chain, its long pole (optimal_hybrid_index) beside
     # the front door: the tools, a doc-sharded engine, make_engine,
     # replicas and cache_dir over the block_optpfor index
-    front_door_phase(coll, wdata, queries, opt_index, entries)
+    wsdm_phase(opt_index, wdata, queries, exact_and,
+               beside=lambda: front_door_phase(coll, wdata, queries, opt_index, entries))
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

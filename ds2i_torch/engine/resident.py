@@ -19,7 +19,9 @@ Per part (one host plan each), on the device:
      tables: pair mode, one launch over every (W, WL, T) group of the
      part, both streams (ops.pair_decode.pair_decode_part); split mode,
      each stream in its own group-major order, one launch per kernel
-     (OptPFor, Varint-G8IU, QMX, interpolative) and stream (ops.block_decode.
+     (OptPFor with resident exception patches or, past
+     RESIDENT_WORD_LIMIT, with its exceptions decoded in the pass;
+     Varint-G8IU, QMX, interpolative) and stream (ops.block_decode.
      split_decode_part): freqs first, then docs, whose launches also
      realign the freqs to the docs order (blkperm). Either way the docs
      launch writes the doc-term weights f/(f+den) from the init-time
@@ -85,6 +87,12 @@ _F32 = np.float32
 _I32 = np.int32
 _PACKAGE = __name__.split(".")[0]
 BLOCK = 32
+# A block index's resident words (index bytes, then the exception patch
+# pairs) are addressed by the int32 word cursors of the field tables: the
+# index alone must stay under this many words, and past it with its patch
+# pairs the engine decodes the exceptions in the pass instead ("opt"
+# statics, K1s), as the JAX engine does (its ex_patch = 0 there).
+RESIDENT_WORD_LIMIT = 2**31
 
 
 def _pow2_at_least(x, lo=1):
@@ -469,7 +477,8 @@ class ResidentEngine:
         ("interp", W, T) (block_mixed picks OptPFor, Varint-G8IU or
         interpolative per block and stream; partial blocks are always
         interpolative), and ONE word stream for docs and freqs: the index
-        bytes, then the resident OptPFor exception patch pairs."""
+        bytes, then the resident OptPFor exception patch pairs (none past
+        RESIDENT_WORD_LIMIT, where the exceptions decode in the pass)."""
         self.split = True
 
         def build():
@@ -488,10 +497,18 @@ class ResidentEngine:
         data = np.asarray(index.lists, dtype=np.uint8)
         pad = (-len(data)) % 4
         words = np.concatenate([data, np.zeros(pad + 8, np.uint8)]).view("<u4")
+        if len(words) >= RESIDENT_WORD_LIMIT:
+            raise ValueError(
+                "device engine limit: 8GB per resident stream (i32 word cursors); "
+                "shard larger indexes by doc range (make_engine, "
+                "parallel.DocShardedEngine)"
+            )
         # resident exception patch tables (the JAX engine's default): the
         # Simple16 exception streams decode ONCE here into (position,
         # high<<b) pairs appended to the stream; BF_EX_BASE holds each
-        # row's first pair word and those groups become "optp"
+        # row's first pair word and those groups become "optp". Where the
+        # pairs would pass the word limit the groups stay "opt" and their
+        # exceptions decode in the pass (BF_EX_W0/BF_EX_BOFF, K1s).
         if any(s[0] == "opt" and s[2] > 0 for s in slist_d + slist_f):
             cached = self._cache_load("expatch", names=("patch", "base_d", "base_f"))
             if cached is not None:
@@ -500,27 +517,13 @@ class ResidentEngine:
                 patch, (base_d, base_f) = build_exception_patches(words, [t.docs, t.freqs])
                 self._cache_save("expatch", patch=patch, base_d=base_d, base_f=base_f)
             nw0 = np.int64(len(words))
-            if nw0 + len(patch) >= 2**31:
-                # the JAX engine drops back to the in-pass Simple16 decode
-                # here, which the port does not carry
-                raise ValueError(
-                    "device engine limit: 8GB of resident words (index bytes plus "
-                    "exception patch pairs) for i32 word cursors; shard the index by "
-                    "doc range (make_engine, parallel.DocShardedEngine): the in-pass "
-                    "exception decode is not ported (ROADMAP queue 1 item 10)"
-                )
-            t.docs[:, BF_EX_BASE] = np.where(base_d >= 0, nw0 + 2 * base_d, 0).astype(np.int32)
-            t.freqs[:, BF_EX_BASE] = np.where(base_f >= 0, nw0 + 2 * base_f, 0).astype(np.int32)
-            words = np.concatenate([words, patch.astype(np.uint32)])
-            remap = lambda s: ("optp",) + s[1:] if s[0] == "opt" and s[2] > 0 else s  # noqa: E731
-            slist_d = [remap(s) for s in slist_d]
-            slist_f = [remap(s) for s in slist_f]
-        elif len(words) >= 2**31:
-            raise ValueError(
-                "device engine limit: 8GB per resident stream (i32 word cursors); "
-                "shard larger indexes by doc range (make_engine, "
-                "parallel.DocShardedEngine)"
-            )
+            if nw0 + len(patch) < RESIDENT_WORD_LIMIT:
+                t.docs[:, BF_EX_BASE] = np.where(base_d >= 0, nw0 + 2 * base_d, 0).astype(np.int32)
+                t.freqs[:, BF_EX_BASE] = np.where(base_f >= 0, nw0 + 2 * base_f, 0).astype(np.int32)
+                words = np.concatenate([words, patch.astype(np.uint32)])
+                remap = lambda s: ("optp",) + s[1:] if s[0] == "opt" and s[2] > 0 else s  # noqa: E731
+                slist_d = [remap(s) for s in slist_d]
+                slist_f = [remap(s) for s in slist_f]
         self.group_statics_d = slist_d
         self.tile_gid_d = gid_d
         self.group_statics_f = slist_f

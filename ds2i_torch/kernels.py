@@ -66,6 +66,7 @@ _JOIN_ARGS = [
 ENTRY_POINTS = {
     "pair_decode": ("ds2i_pair_decode_part", _PAIR_ARGS),
     "optpfor_decode": ("ds2i_optpfor_decode_part", _PART_ARGS),
+    "optpfor_s16_decode": ("ds2i_optpfor_s16_decode_part", _PART_ARGS),
     "varint_decode": ("ds2i_varint_decode_part", _PART_ARGS),
     "qmx_decode": ("ds2i_qmx_decode_part", _QMX_ARGS),
     "interp_decode": ("ds2i_interp_decode_part", _PART_ARGS),

@@ -8,6 +8,9 @@ engine's split mode:
       with resident exception patches (ex_patch=True) or no exceptions
       (E = 0), plus the assembly of engine/resident.py:_decode_block_stream
       (docs base-1+cumsum(gap+1), freqs raw+1) -> csrc/optpfor_decode.cu
+  K1s the same op's in-pass Simple16 exception decode (ex_patch=False,
+      E > 0: the engine's ("opt", b, E, 128) groups past the resident word
+      limit), plus the same assembly -> csrc/optpfor_s16_decode.cu
   K7  ds2i_tpu/ops/varint_device.py:varint_decode, plus the same assembly
       -> csrc/varint_decode.cu
   K8  ds2i_tpu/ops/qmx_device.py:qmx_decode, plus the same assembly
@@ -16,8 +19,9 @@ engine's split mode:
       DFS, plus its assembly (docs base+cum+j, freqs cum diff + 1)
       -> csrc/interp_decode.cu
 
-`optpfor_decode_torch`, `varint_decode_torch`, `qmx_decode_torch` and
-`interp_decode_torch` transcribe the JAX ops' raw outputs;
+`optpfor_decode_torch`, `optpfor_inpass_decode_torch`,
+`varint_decode_torch`, `qmx_decode_torch` and `interp_decode_torch`
+transcribe the JAX ops' raw outputs;
 `block_stream_torch` adds the assembly and the pad mask (docs slots j >=
 n_vals -> num_docs, freqs -> 0) for one group.
 
@@ -30,10 +34,10 @@ and the weight w = f / (f + den) included (the JAX engine's
 resident.py:_decode_weight_blocks split branch and _decode_part's pad).
 `split_decode_part_torch` is that whole decode in plain PyTorch, from
 the per-group block_stream_torch; `decode_launch_torch` is what one
-launch writes. The wrappers `optpfor_decode`, `varint_decode`,
-`qmx_decode` and `interp_decode` (one launch each, counted in
-`.launches`) and `split_decode_part` take those
-plain versions for CPU tensors only; on CUDA tensors they launch the
+launch writes. The wrappers `optpfor_decode`, `optpfor_s16_decode`,
+`varint_decode`, `qmx_decode` and `interp_decode` (one launch each,
+counted in `.launches`) and `split_decode_part` take those plain
+versions for CPU tensors only; on CUDA tensors they launch the
 kernels or raise. PartLayout and cta_table also lay out pair mode's
 one launch a part (ops/pair_decode.py).
 
@@ -48,6 +52,7 @@ import torch
 
 from .. import kernels
 from ..codecs.qmx import ADV_OF_TYPE, INTS_OF_TYPE, LANE_TABLE
+from ..codecs.simple16 import S16_MODES
 from ..engine.block_tiles import (
     BF_B, BF_BOFF, BF_EX_BASE, BF_EX_BOFF, BF_EX_W0, BF_NEX, BF_W0,
     _E_BUCKETS, _G_BUCKETS, _NC_BUCKETS, _NW_BUCKETS, _S_BUCKETS, _WIN_BUCKETS,
@@ -102,6 +107,65 @@ def optpfor_decode_torch(words, slot_w0, slot_boff, n_ex, ex_base, WS, E, b_stat
         hit = (j[:, :, None] == pos[:, None, :]) & evalid[:, None, :]
         out = out | (torch.where(hit, add[:, None, :], 0).sum(dim=2) & _M32)
     return out.int()
+
+
+# Simple16's 16 selector modes as (16, 28) per-slot shift and width
+# tables (0 past a mode's count) and the count of each mode
+_S16_COUNT = torch.tensor([sum(c for c, _ in m) for m in S16_MODES], dtype=torch.int64)
+_S16_WIDTH = torch.zeros((16, 28), dtype=torch.int64)
+for _m, _mode in enumerate(S16_MODES):
+    _ws = [bits for cnt, bits in _mode for _ in range(cnt)]
+    _S16_WIDTH[_m, :len(_ws)] = torch.tensor(_ws)
+_S16_SHIFT = torch.cumsum(_S16_WIDTH, dim=1) - _S16_WIDTH
+
+
+def optpfor_inpass_decode_torch(words, slot_w0, slot_boff, b, n_ex, ex_w0, ex_boff, WS, E,
+                                b_static, T=TILE):
+    """optpfor_decode(..., b_static=b_static, ex_patch=False) in plain
+    PyTorch: (R, T) int32 raw slot values, the exceptions decoded in the
+    pass. Each row reads K = 2E Simple16 words at word ex_w0, bit ex_boff
+    (< 32; stream indices clamped to the stream), unpacks every word by
+    its selector's mode, and places value q of the stream at index
+    base + q (base: the values of the words before it); indices >= K
+    drop, indices no word reaches read 0. Positions are the int32 cumsum
+    of (first, gaps + 1) over the first E values; exception e < n_ex
+    takes the high at stream index n_ex + e (0 where that is >= K) plus
+    1, shifted by clip(b, 0, 31) (the row's BF_B, not b_static), and the
+    sum of those at each slot position is ORed into the slot."""
+    out = optpfor_decode_torch(words, slot_w0, slot_boff, n_ex, ex_w0, WS, 0, b_static, T).long()
+    out = out & _M32
+    if E == 0:
+        return _i32(out).int()
+    R = slot_w0.shape[0]
+    dev = words.device
+    K = 2 * E
+    w = pair_decode._gather_words(
+        words, ex_w0.long()[:, None] + torch.arange(K + 1, device=dev, dtype=torch.int64)[None, :])
+    s = ex_boff.long()[:, None]
+    xw = (w[:, :K] >> s) | torch.where(s > 0, (w[:, 1:] << (32 - s)) & _M32, 0)
+    sel = xw >> 28
+    payload = xw & 0x0FFFFFFF
+    cnt = _S16_COUNT.to(dev)[sel]  # (R, K)
+    val = (payload[:, :, None] >> _S16_SHIFT.to(dev)[sel]) & ((1 << _S16_WIDTH.to(dev)[sel]) - 1)
+    slot = torch.arange(28, device=dev, dtype=torch.int64)[None, None, :]
+    sidx = (torch.cumsum(cnt, dim=1) - cnt)[:, :, None] + slot  # stream index of each value
+    keep = (slot < cnt[:, :, None]) & (sidx < K)
+    elem = torch.zeros((R, K + 1), dtype=torch.int64, device=dev)
+    elem.scatter_add_(1, torch.where(keep, sidx, K).reshape(R, -1),
+                      torch.where(keep, val, 0).reshape(R, -1))
+    elem = elem[:, :K]
+
+    steps = torch.cat([elem[:, :1], elem[:, 1:E] + 1], dim=1)
+    pos = _i32(torch.cumsum(steps, dim=1))  # (R, E), int32 wrapping as in the JAX op
+    ee = torch.arange(E, device=dev, dtype=torch.int64)[None, :]
+    want = n_ex.long()[:, None] + ee
+    high = torch.where((want >= 0) & (want < K), elem.gather(1, want.clamp(0, K - 1)), 0) + 1
+    add = (high << b.long().clamp(0, 31)[:, None]) & _M32
+    evalid = ee < n_ex.long()[:, None]
+    j = torch.arange(T, device=dev, dtype=torch.int64)[None, :, None]
+    hit = (j == pos[:, None, :]) & evalid[:, None, :]
+    out = out | (torch.where(hit, add[:, None, :], 0).sum(dim=2) & _M32)
+    return _i32(out).int()
 
 
 def varint_decode_torch(words, w0, boff, ngroups, G, T=TILE):
@@ -308,7 +372,8 @@ def interp_decode_torch(win, rel0, n, sums, NC, W, steps):
 def block_stream_torch(words, fld, st, num_docs, is_docs):
     """One stream of one block group in plain PyTorch: (R, T) int32 docids
     (is_docs; pads -> num_docs) or freqs (pads -> 0). st is the group's
-    statics: ("opt", b, 0, 128), ("optp", b, E, 128), ("var", G, 128),
+    statics: ("opt", b, E, 128) (E > 0: the exceptions decoded in the
+    pass), ("optp", b, E, 128), ("var", G, 128),
     ("qmx", NI, S, 128) or ("interp", W, T) (resident.py:
     _decode_block_stream and the pad mask of _decode_doc_group_blocks /
     _decode_freq_group_blocks)."""
@@ -325,14 +390,15 @@ def block_stream_torch(words, fld, st, num_docs, is_docs):
                                    f[:, BF_EX_BOFF], f[:, BF_NEX], st[1], st[2], T)
         else:
             b, E = st[1], st[2]
-            if kind == "opt" and E > 0:
-                raise NotImplementedError(
-                    "the in-pass Simple16 exception decode is not ported; block "
-                    "indexes decode exceptions from resident patch words (\"optp\")")
             ws = (31 + T * min(b, 32)) // 32 + 1
-            raw = optpfor_decode_torch(
-                words, f[:, BF_W0], f[:, BF_BOFF], f[:, BF_NEX], f[:, BF_EX_BASE],
-                ws, E, b, T)
+            if kind == "opt" and E > 0:
+                raw = optpfor_inpass_decode_torch(
+                    words, f[:, BF_W0], f[:, BF_BOFF], f[:, BF_B], f[:, BF_NEX], f[:, BF_EX_W0],
+                    f[:, BF_EX_BOFF], ws, E, b, T)
+            else:
+                raw = optpfor_decode_torch(
+                    words, f[:, BF_W0], f[:, BF_BOFF], f[:, BF_NEX], f[:, BF_EX_BASE],
+                    ws, E, b, T)
         raw = raw.long()
         val = col(F_BASE) - 1 + torch.cumsum(raw + 1, dim=1) if is_docs else raw + 1
     elif kind == "interp":
@@ -363,14 +429,16 @@ def block_stream_torch(words, fld, st, num_docs, is_docs):
 BLOCK = 32
 PAIR_ROWS = 16  # rows per pair_decode CTA, two a warp (csrc/pair_decode.cu kRows)
 K1_ROWS = 8  # rows per K1 CTA, one warp each (csrc/optpfor_decode.cu kWarps)
+K1S_ROWS = 8  # rows per K1s CTA, one warp each (csrc/optpfor_s16_decode.cu kWarps)
 K2_ROWS = 32  # rows per K2 CTA, one thread each (csrc/interp_decode.cu kRows)
 K7_ROWS = 8  # rows per K7 CTA, one warp each (csrc/varint_decode.cu kWarps)
 K8_ROWS = 8  # rows per K8 CTA, one warp each (csrc/qmx_decode.cu kWarps)
-ROWS_PER_CTA = {"pair": PAIR_ROWS, "optpfor": K1_ROWS, "varint": K7_ROWS, "qmx": K8_ROWS,
-                "interp": K2_ROWS}
+ROWS_PER_CTA = {"pair": PAIR_ROWS, "optpfor": K1_ROWS, "optpfor_s16": K1S_ROWS,
+                "varint": K7_ROWS, "qmx": K8_ROWS, "interp": K2_ROWS}
 CTA_FIELDS = 6  # [p1, p2, T, row0, nrows, blk0]
 MODES = {"freqs": 0, "docs": 1, "presence": 2, "bm25": 3}  # csrc/common.cuh Mode
-KERNELS = ("optpfor", "varint", "qmx", "interp")  # the split-mode kernels, in launch order
+# the split-mode kernels, in launch order
+KERNELS = ("optpfor", "optpfor_s16", "varint", "qmx", "interp")
 PAIR_MAX_W = 1024  # W and WL of a pair group (csrc/pair_decode.cu kMaxW)
 
 
@@ -383,14 +451,11 @@ def _kernel_of(st):
                              f"0..{PAIR_MAX_W}, T in (32, 64, 128)), got {st}")
         return "pair"
     if st[0] in ("opt", "optp"):
-        if st[0] == "opt" and st[2] > 0:
-            raise NotImplementedError(
-                "the in-pass Simple16 exception decode is not ported; block "
-                "indexes decode exceptions from resident patch words (\"optp\")")
-        if st[-1] != TILE or not 0 <= st[1] <= 32 or st[2] not in _E_BUCKETS:
+        if len(st) != 4 or st[-1] != TILE or not 0 <= st[1] <= 32 or st[2] not in _E_BUCKETS:
             raise ValueError(f"optpfor_decode takes (\"opt\"|\"optp\", b in 0..32, E in "
                              f"{_E_BUCKETS}, 128), got {st}")
-        return "optpfor"
+        # exceptions decoded in the pass: K1s; from resident patches or none: K1
+        return "optpfor_s16" if st[0] == "opt" and st[2] > 0 else "optpfor"
     if st[0] == "var":
         if len(st) != 3 or st[-1] != TILE or st[1] not in _G_BUCKETS:
             raise ValueError(f"varint_decode takes (\"var\", G in {_G_BUCKETS}, 128), got {st}")
@@ -450,7 +515,7 @@ class Launch:
         # the blocks the launch writes end before end_blk
         ends = h[:, 5] + h[:, 4] * np.maximum(h[:, 2] // BLOCK, 1)
         self.end_blk = int(ends.max()) if self.n_cta else 0
-        if kernel in ("optpfor", "varint", "qmx"):  # full 128-slot blocks
+        if kernel in ("optpfor", "optpfor_s16", "varint", "qmx"):  # full 128-slot blocks
             self.max_w, self.max_t = 0, TILE
         elif kernel == "pair":
             self.max_w = int((h[:, 0] + h[:, 1] + 1 + h[:, 2]).max()) if self.n_cta else 0
@@ -577,6 +642,8 @@ def decode_launch_torch(launch, words, fld, gtile, mode, num_docs, out, w=None, 
             j += 1
         if launch.kernel == "optpfor":
             st = ("optp" if p2 > 0 else "opt", p1, p2, T)
+        elif launch.kernel == "optpfor_s16":
+            st = ("opt", p1, p2, T)
         elif launch.kernel == "varint":
             st = ("var", p1, T)
         elif launch.kernel == "qmx":
@@ -629,7 +696,7 @@ def _decode_launch(wrapper, launch, words, fld, gtile, mode, num_docs, out, w, f
                                    blkperm, den_blocks, tile_gblk0)
     if words.device.type != "cuda":
         raise ValueError(f"{wrapper.__name__} runs on cuda or cpu, not {words.device}")
-    if launch.kernel != wrapper.__name__.split("_")[0]:
+    if launch.kernel != wrapper.__name__[:-len("_decode")]:
         raise ValueError(f"{wrapper.__name__} got a CTA table of the {launch.kernel} kernel")
     bm25 = mode == "bm25"
     _check_launch_args(launch, words, [
@@ -662,12 +729,22 @@ def _decode_launch(wrapper, launch, words, fld, gtile, mode, num_docs, out, w, f
 
 def optpfor_decode(launch, words, fld, gtile, mode, num_docs, out, w=None, freq=None,
                    blkperm=None, den_blocks=None, tile_gblk0=None):
-    """K1 over one stream of a part: every ("opt"|"optp", b, E, 128) group
-    that `launch` (PartLayout.launch) lists, written into out (and w) as
-    decode_launch_torch writes them. CPU tensors take that plain version;
+    """K1 over one stream of a part: every ("opt", b, 0, 128) and ("optp",
+    b, E, 128) group that `launch` (PartLayout.launch) lists, written into
+    out (and w) as decode_launch_torch writes them. CPU tensors take that plain version;
     CUDA tensors launch csrc/optpfor_decode.cu once (counted in
     optpfor_decode.launches) or raise."""
     return _decode_launch(optpfor_decode, launch, words, fld, gtile, mode, num_docs, out, w,
+                          freq, blkperm, den_blocks, tile_gblk0)
+
+
+def optpfor_s16_decode(launch, words, fld, gtile, mode, num_docs, out, w=None, freq=None,
+                       blkperm=None, den_blocks=None, tile_gblk0=None):
+    """K1s over one stream of a part: every ("opt", b, E > 0, 128) group
+    that `launch` lists (exceptions decoded in the pass), as
+    optpfor_decode; CUDA tensors launch csrc/optpfor_s16_decode.cu once
+    (counted in optpfor_s16_decode.launches) or raise."""
+    return _decode_launch(optpfor_s16_decode, launch, words, fld, gtile, mode, num_docs, out, w,
                           freq, blkperm, den_blocks, tile_gblk0)
 
 
@@ -728,18 +805,19 @@ def interp_decode(launch, words, fld, gtile, mode, num_docs, out, w=None, freq=N
 
 
 optpfor_decode.launches = 0
+optpfor_s16_decode.launches = 0
 varint_decode.launches = 0
 qmx_decode.launches = 0
 interp_decode.launches = 0
-WRAPPERS = {"optpfor": optpfor_decode, "varint": varint_decode, "qmx": qmx_decode,
-            "interp": interp_decode}
+WRAPPERS = {"optpfor": optpfor_decode, "optpfor_s16": optpfor_s16_decode,
+            "varint": varint_decode, "qmx": qmx_decode, "interp": interp_decode}
 
 
 def split_decode_part(words, tiles_docs, tiles_freqs, gtile_ids, gtile_f, blkperm, layout,
                       num_docs, weights, den_blocks=None, tile_gblk0=None, out_rows=None):
     """split_decode_part_torch's contract. CPU tensors take that plain
-    version; CUDA tensors run at most one launch of each kernel (K1, K7,
-    K8, K2) per stream (freqs first, only for "bm25"; then docs, with the
+    version; CUDA tensors run at most one launch of each kernel (K1, K1s,
+    K7, K8, K2) per stream (freqs first, only for "bm25"; then docs, with the
     weights), each
     writing straight into the part's tensors, or raise."""
     if words.device.type == "cpu":

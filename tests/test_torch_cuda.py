@@ -1,10 +1,13 @@
 """The port on the card: each CUDA kernel (the part-level EF pair
-decode, OptPFor, Varint-G8IU, QMX and interpolative block decode, launch
-by launch and as a whole part, and K7 and K8 on seeded edge rows; the
+decode, OptPFor with exception patches and with the exceptions decoded
+in the pass (K1s), Varint-G8IU, QMX and interpolative block decode,
+launch by launch and as a whole part, and K7, K8 and K1s on seeded edge
+rows; the
 block-max pass in both forms; the join and pack, K3, on every part of
 every plan) against its plain
 PyTorch version, and ResidentEngine on CUDA against the same
-engine on the CPU, exhaustive and pruned, over every index type.
+engine on the CPU, exhaustive and pruned, over every index type and
+past a lowered resident word limit.
 
 Every test here is marked `cuda` and skips where torch.cuda.is_available()
 is False. The card's machine has no jax, so run them there without the
@@ -32,7 +35,7 @@ from ds2i_torch.ops.block_decode import (
 from ds2i_torch.ops.pair_decode import (
     decode_pair, decode_pair_launch_torch, pair_decode_part, pair_decode_part_torch,
 )
-from torch_block_rows import block_part, qmx_rows, varint_rows
+from torch_block_rows import block_part, qmx_rows, s16_rows, varint_rows
 from torch_join_rows import KINDS, bucket_layout, bucket_of, special_rows
 
 pytestmark = pytest.mark.cuda
@@ -226,6 +229,116 @@ def test_block_kernel_on_seeded_rows(cuda, kernel, seed):
         wrapper(lay.launch(kernel, True, cuda), words, fld, gtile, "docs", t["num_docs"], off)
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_inpass_kernel_on_seeded_rows(cuda, seed):
+    """K1s on the seeded edge rows of tests/torch_block_rows.py:s16_rows
+    (every E bucket; n_ex above E; highs past the K stream values;
+    repeated positions; b = 32 with exceptions and BF_B outside 0..31;
+    exception windows clamped at the stream's ends; malformed cursors),
+    laid as a part of one group per ("opt", b, E, 128) statics: one launch
+    per mode (freqs; docs alone, with presence flags, with BM25 weights)
+    against decode_launch_torch on the card, bit for bit, one counted
+    launch each."""
+    words, rows = s16_rows(seed)
+    assert {E for _, E, _, _ in rows} == set(block_decode._E_BUCKETS[1:])
+    lay, t = block_part([("opt", b, E, 128) for b, E, _, _ in rows], [f for _, _, f, _ in rows],
+                        seed)
+    words = torch.from_numpy(words.view(np.int32)).to(cuda)
+    fld, gtile, freq, bp, den, g0 = (t[k].to(cuda) for k in (
+        "fld", "gtile", "freq", "blkperm", "den_blocks", "tile_gblk0"))
+    wrapper = block_decode.optpfor_s16_decode
+    for mode in ("freqs", "docs", "presence", "bm25"):
+        launch = lay.launch("optpfor_s16", mode != "freqs", cuda)
+        assert launch.n_cta > 1
+        outs = []
+        for fn in (wrapper, decode_launch_torch):
+            out = torch.full((lay.nb_d, 32), -7, dtype=torch.int32, device=cuda)
+            w = torch.full((lay.nb_d, 32), -7.0, device=cuda) if mode in ("bm25", "presence") else None
+            before = wrapper.launches
+            fn(launch, words, fld, gtile, mode, t["num_docs"], out, w, freq, bp, den, g0)
+            torch.cuda.synchronize()
+            assert wrapper.launches == before + (fn is wrapper)
+            outs.append((out, w))
+        (go, gw), (po, pw) = outs
+        _same_bits(go, po)
+        if gw is not None:
+            _same_bits(gw, pw)
+
+
+def _lowered_limit_engine(index, device):
+    """ResidentEngine over a block_optpfor index with the resident word
+    limit just above the index's own words, so its OptPFor groups with
+    exceptions stay "opt" (K1s)."""
+    n = len(np.asarray(index.lists))
+    old = resident.RESIDENT_WORD_LIMIT
+    resident.RESIDENT_WORD_LIMIT = (n + (-n) % 4 + 8) // 4 + 1
+    try:
+        eng = ResidentEngine(index, device=device)
+    finally:
+        resident.RESIDENT_WORD_LIMIT = old
+    statics = eng.group_statics_d + eng.group_statics_f
+    assert any(st[0] == "opt" and st[2] > 0 for st in statics)
+    assert not any(st[0] == "optp" for st in statics)
+    return eng
+
+
+def test_inpass_kernel_matches_plain_on_every_group(cuda, coll):
+    """Past the lowered word limit, K1s's one launch per stream over every
+    tile, in each mode, against decode_launch_torch on the card, bit for
+    bit; the whole part (K1s beside K1 and K2) against
+    split_decode_part_torch."""
+    eng = _lowered_limit_engine(build(coll, "block_optpfor"), cuda)
+    eng._ensure_norm_cache()
+    s, nd = eng.state, eng.num_docs
+    gt, gf, bp, lay = eng.all_tiles_part()[:4]
+    freq = torch.empty((lay.nb_f, 32), dtype=torch.int32, device=cuda)
+    for kernel in KERNELS:
+        block_decode.WRAPPERS[kernel](lay.launch(kernel, False, cuda), s.docs_words,
+                                      s.tiles_freqs, gf, "freqs", nd, freq)
+    wrapper = block_decode.optpfor_s16_decode
+    for mode in ("freqs", "bm25", "docs", "presence"):
+        is_docs = mode != "freqs"
+        launch = lay.launch("optpfor_s16", is_docs, cuda)
+        assert launch.n_cta > 0
+        table, gtile = (s.tiles_docs, gt) if is_docs else (s.tiles_freqs, gf)
+        nb = lay.nb_d if is_docs else lay.nb_f
+        outs = []
+        for fn in (wrapper, decode_launch_torch):
+            out = torch.full((nb, 32), -7, dtype=torch.int32, device=cuda)
+            w = torch.full((nb, 32), -7.0, device=cuda) if mode in ("bm25", "presence") else None
+            fn(launch, s.docs_words, table, gtile, mode, nd, out, w, freq, bp, s.den_blocks,
+               s.tile_gblk0)
+            outs.append((out, w))
+        torch.cuda.synchronize()
+        (go, gw), (po, pw) = outs
+        _same_bits(go, po)
+        if gw is not None:
+            _same_bits(gw, pw)
+    args = (s.docs_words, s.tiles_docs, s.tiles_freqs, gt, gf, bp, lay, nd, "bm25",
+            s.den_blocks, s.tile_gblk0)
+    (gd, gw), (pd, pw) = split_decode_part(*args), split_decode_part_torch(*args)
+    _same_bits(gd, pd)
+    _same_bits(gw, pw)
+
+
+@pytest.mark.parametrize("prune", [False, True])
+def test_inpass_engine_on_cuda_equals_engine_on_cpu(cuda, coll, prune):
+    """Past the lowered word limit: the engine on the card (K1s launched)
+    serves the CPU engine's counts and top-10 exactly, and the patched
+    engine's."""
+    index = build(coll, "block_optpfor")
+    qs = read_queries(coll + ".queries")
+    gpu, cpu = _lowered_limit_engine(index, cuda), _lowered_limit_engine(index, "cpu")
+    before = block_decode.optpfor_s16_decode.launches
+    got = gpu.ranked_and(qs, k=10, prune=prune)
+    assert block_decode.optpfor_s16_decode.launches > before
+    assert got == cpu.ranked_and(qs, k=10, prune=prune)
+    assert got == ResidentEngine(index, device=cuda).ranked_and(qs, k=10, prune=prune)
+    if not prune:
+        np.testing.assert_array_equal(gpu.and_counts(qs), cpu.and_counts(qs))
+        np.testing.assert_array_equal(gpu.or_counts(qs), cpu.or_counts(qs))
+
+
 @pytest.mark.parametrize("weights", ["bm25", "presence", None])
 @pytest.mark.parametrize("name", EF_TYPES + BLOCK_TYPES)
 def test_part_decode_matches_plain_on_every_part(cuda, coll, name, weights):
@@ -298,8 +411,9 @@ def test_block_wrappers_reject_what_the_kernels_do_not_take(cuda, coll):
                        "docs", nd, out)
     with pytest.raises(ValueError, match="optpfor_decode takes"):
         PartLayout(((0, 8, ("optp", 5, 3, 128)),))
-    with pytest.raises(NotImplementedError, match="Simple16"):
-        PartLayout(((0, 8, ("opt", 5, 4, 128)),))
+    assert len(PartLayout(((0, 8, ("opt", 5, 4, 128)),)).tables["optpfor_s16", True]) == 1
+    with pytest.raises(ValueError, match="optpfor_decode takes"):
+        PartLayout(((0, 8, ("opt", 5, 3, 128)),))
     with pytest.raises(ValueError, match="interp_decode takes"):
         PartLayout(((0, 8, ("interp", 5, 32)),))
     with pytest.raises(ValueError, match="varint_decode takes"):

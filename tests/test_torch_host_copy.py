@@ -3,8 +3,10 @@ queries, native, ...}) against the originals in ds2i_tpu: the same
 collection files byte for byte, word-for-word equal indexes of every
 index type the port serves (block_mixed made by each package's
 rebuild_mixed), equal decoded lists, equal WandData, equal oracle
-answers, and the hybrid pipeline (the out-of-core lambda sort, the
-lambda frontiers, the greedy trade-off) choosing alike. The
+answers, the hybrid pipeline (the out-of-core lambda sort, the
+lambda frontiers, the greedy trade-off) choosing alike, the sequence
+collection's frozen bytes, the block profiler's dump, and the explicit
+native build writing where the loader does. The
 helpers here build one index per package from one collection; the other
 port tests use them, so each engine gets an index of its own package."""
 
@@ -270,3 +272,96 @@ def test_compute_lambdas_is_equal(tmp_path, monkeypatch, capsys):
         RefConfiguration.reset()
         PortConfiguration.reset()
     capsys.readouterr()
+
+
+def test_sequence_collection_is_byte_equal(tmp_path):
+    """The port's SequenceCollection over its IndexedSequence: the same
+    frozen bytes as ds2i_tpu's on the same sequences
+    (tests/test_sequence_collection.py's), and each sequence decodes and
+    enumerates back from the loaded file."""
+    from ds2i_tpu.index import freeze as ref_freeze
+    from ds2i_tpu.index.sequence_collection import SequenceCollection as RefSeqColl
+    from ds2i_tpu.sequences import IndexedSequence as RefIndexed
+
+    from ds2i_torch.index import freeze, load
+    from ds2i_torch.index.sequence_collection import SequenceCollection
+    from ds2i_torch.sequences import IndexedSequence
+
+    rng = np.random.RandomState(2)
+    port_b = SequenceCollection.builder(IndexedSequence, port_host.GlobalParameters())
+    ref_b = RefSeqColl.builder(RefIndexed, RefParams())
+    seqs = []
+    for _ in range(15):
+        n = int(rng.randint(1, 300))
+        universe = int(rng.randint(n + 1, n * 20 + 2))
+        v = np.sort(rng.choice(universe, size=n, replace=False)).astype(np.uint64)
+        seqs.append(v)
+        port_b.add_sequence(v, universe)
+        ref_b.add_sequence(v, universe)
+    coll = port_b.build()
+    assert coll.size() == 15
+    freeze(coll.tree(), tmp_path / "port.bin")
+    ref_freeze(ref_b.build().tree(), tmp_path / "ref.bin")
+    assert (tmp_path / "port.bin").read_bytes() == (tmp_path / "ref.bin").read_bytes()
+    loaded = SequenceCollection.from_tree(IndexedSequence, load(tmp_path / "port.bin"))
+    for i, v in enumerate(seqs):
+        np.testing.assert_array_equal(loaded.decode(i), v)
+        assert loaded.enumerator(i).move(len(v) - 1) == (len(v) - 1, int(v[-1]))
+
+
+def test_block_profiler_dumps_as_the_original():
+    """BlockProfiler: the same counts (open_list, count_list with and
+    without freqs) dump the same TSV as ds2i_tpu's."""
+    import io
+
+    from ds2i_tpu.utils.block_profiler import BlockProfiler as RefProfiler
+
+    from ds2i_torch.codecs.optpfor import OptPForBlock
+    from ds2i_torch.utils.block_profiler import BlockProfiler
+
+    out = []
+    for prof in (BlockProfiler(), RefProfiler()):
+        prof.open_list(7, 3)[:] = 2
+        prof.count_list(3, OptPForBlock, n=300)
+        prof.count_list(3, OptPForBlock, n=300, with_freqs=False)
+        prof.count_list(5, OptPForBlock)  # no length: nothing counted
+        s = io.StringIO()
+        prof.dump(s)
+        out.append(s.getvalue())
+    assert out[0] == out[1] == "3\t2 1 2 1 2 1\n7\t2 2 2 2 2 2\n"
+
+
+@pytest.mark.parametrize("sanitize", [False, True])
+def test_native_build_writes_under_build_not_the_package(monkeypatch, sanitize):
+    """native/build.py g++-builds ds2i_native.cpp with the loader's flags
+    (plus AddressSanitizer's for --sanitize) into build/ds2i_torch/ at the
+    repository root: the loader's own path, or its asan twin, never the
+    package directory."""
+    import subprocess
+
+    from ds2i_torch.native import build as native_build
+
+    calls = []
+
+    def fake_run(cmd, check, timeout):
+        calls.append(cmd)
+        open(cmd[-1], "wb").close()
+
+    monkeypatch.setattr(subprocess, "run", fake_run)
+    monkeypatch.setattr(native_build.os, "replace", lambda a, b: calls.append(("replace", a, b)))
+    try:
+        out = native_build.build(verbose=False, sanitize=sanitize)
+    finally:
+        for c in calls:
+            if c[0] != "replace" and os.path.exists(c[-1]):
+                os.remove(c[-1])
+    (cmd, (_, tmp, dst)) = calls
+    assert dst == out and tmp == cmd[-1] and os.path.dirname(out) == port_native.BUILD_DIR
+    assert port_native.BUILD_DIR.endswith(os.path.join("build", "ds2i_torch"))
+    assert cmd[0] == "g++" and cmd[1:1 + len(port_native.GXX_FLAGS)] == port_native.GXX_FLAGS
+    assert ("-fsanitize=address" in cmd) == sanitize
+    if sanitize:
+        assert os.path.basename(out).startswith("libds2i_native_asan_")
+    else:
+        assert out == port_native.lib_path()
+    assert not out.startswith(os.path.dirname(port_native.__file__))

@@ -6,7 +6,10 @@ it by the port's rebuild_mixed (split mode) against the numpy oracle
 (and, over the block indexes, the pruned ranked_and too; every pass
 joins through ds2i_torch.ops.join), save and load the block_optpfor
 index through the port's tools and serve it from a 2-shard
-DocShardedEngine made by make_engine, and check neither loaded. Each
+DocShardedEngine made by make_engine, run the WSDM'15 tool chain over
+it (profile_queries, profile_decoding's resident mode on the CPU,
+dec_time_regression, optimal_hybrid_index) and serve its hybrid, serve
+it past a lowered resident word limit, and check neither loaded. Each
 module a caller may import first loads in a fresh interpreter (no
 import cycle breaks it). And no file of the port, nor
 chip_smoke.py, names ds2i_tpu in an import."""
@@ -55,6 +58,13 @@ _SCRIPT = textwrap.dedent("""
     import ds2i_torch.tools.create_wand_data
     import ds2i_torch.tools.gen_collection
     import ds2i_torch.tools.queries
+    import ds2i_torch.index.sequence_collection
+    import ds2i_torch.native.build
+    import ds2i_torch.utils.block_profiler
+    import ds2i_torch.tools.profile_queries
+    import ds2i_torch.tools.profile_decoding
+    import ds2i_torch.tools.dec_time_regression
+    import ds2i_torch.tools.optimal_hybrid_index
     from ds2i_torch.engine import ResidentEngine, make_engine
     from ds2i_torch.parallel import DocShardedEngine
     from ds2i_torch.queries import QUERY_OPS
@@ -106,6 +116,36 @@ _SCRIPT = textwrap.dedent("""
                 if e:
                     np.testing.assert_allclose(served[i], e, rtol=1e-3)
                 assert QUERY_OPS["ranked_and"](index, wdata, 10)(q) == e
+
+    # the WSDM'15 chain over the saved block_optpfor index, and an engine
+    # past a lowered resident word limit (exceptions decoded in the pass)
+    from ds2i_torch.engine import resident
+    from ds2i_torch.tools import (
+        create_wand_data, dec_time_regression, optimal_hybrid_index, profile_decoding,
+        profile_queries,
+    )
+
+    def tool(mod, *argv):
+        sys.argv = [mod.__name__] + [str(a) for a in argv]
+        mod.main()
+
+    tool(create_wand_data, base, base + ".wand")
+    tool(profile_queries, "block_optpfor", "ranked_and", base + ".idx", base + ".wand",
+         "--queries", base + ".queries", "--out", base + ".bs")
+    tool(profile_decoding, "block_optpfor", base + ".idx", "0.3", "--out", base + ".prof",
+         "--engine", "resident", "--copies", "4", "--replays", "1", "--device", "cpu")
+    tool(dec_time_regression, base + ".prof", "--out", base + ".weights")
+    tool(optimal_hybrid_index, "block_optpfor", base + ".weights", base + ".bs", base + ".idx",
+         base + ".lambdas", "30000", base + ".mixed")
+    opt_index = load_index(base + ".idx", "block_optpfor")
+    mixed = load_index(base + ".mixed", "block_mixed")
+    exact = ResidentEngine(opt_index, wdata, device="cpu").ranked_and(queries, k=10)
+    assert ResidentEngine(mixed, wdata, device="cpu").ranked_and(queries, k=10) == exact
+    n = len(np.asarray(opt_index.lists))
+    resident.RESIDENT_WORD_LIMIT = (n + (-n) % 4 + 8) // 4 + 1
+    inpass = ResidentEngine(opt_index, wdata, device="cpu")
+    assert any(st[0] == "opt" and st[2] > 0 for st in inpass.group_statics_d)
+    assert inpass.ranked_and(queries, k=10) == exact
     loaded = sorted(m for m in sys.modules if blocked(m))
     assert not loaded, loaded
     print("NOJAX_OK", len(queries))
@@ -132,6 +172,10 @@ def test_port_imports_and_serves_without_jax(tmp_path):
     "ds2i_torch.tools.gen_collection", "ds2i_torch.tools.create_freq_index",
     "ds2i_torch.tools.create_wand_data", "ds2i_torch.tools.queries",
     "ds2i_torch.parallel.doc_sharded", "ds2i_torch.parallel",
+    "ds2i_torch.index.sequence_collection", "ds2i_torch.native.build",
+    "ds2i_torch.utils.block_profiler", "ds2i_torch.tools.profile_queries",
+    "ds2i_torch.tools.profile_decoding", "ds2i_torch.tools.dec_time_regression",
+    "ds2i_torch.tools.optimal_hybrid_index",
 ])
 def test_module_imports_first(tmp_path, module):
     """chip_smoke.py imports ds2i_torch.kernels, then ds2i_torch.ops: each
@@ -175,7 +219,10 @@ def test_no_file_of_the_port_imports_the_jax_package():
                    "index/mapper.py", "index/verify.py", "queries/topk.py", "queries/wand.py",
                    "queries/maxscore.py", "tools/common.py", "tools/gen_collection.py",
                    "tools/create_freq_index.py", "tools/create_wand_data.py", "tools/queries.py",
-                   "parallel/doc_sharded.py", "engine/__init__.py"):
+                   "parallel/doc_sharded.py", "engine/__init__.py",
+                   "index/sequence_collection.py", "native/build.py", "utils/block_profiler.py",
+                   "tools/profile_queries.py", "tools/profile_decoding.py",
+                   "tools/dec_time_regression.py", "tools/optimal_hybrid_index.py"):
         assert os.path.join(_REPO, "ds2i_torch", module) in files
     bad = {os.path.relpath(f, _REPO): hits for f in files if (hits := _names_ds2i_tpu(f))}
     assert not bad, bad

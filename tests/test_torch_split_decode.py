@@ -139,7 +139,7 @@ def _covered(layout, kernel, is_docs):
         gi = gis.pop()
         off, R, st = groups[gi]
         assert block_decode._kernel_of(st) == kernel and st[-1] == T
-        assert (p1, p2) == ((st[1], st[2]) if st[0] in ("optp", "qmx") else (st[1], 0))
+        assert (p1, p2) == ((st[1], st[2]) if st[0] in ("opt", "optp", "qmx") else (st[1], 0))
         bpt = max(T // 32, 1)
         gblk = sum(Rg * max(sg[-1] // 32, 1) for _, Rg, sg in groups[:gi])
         assert blk0 == gblk + (row0 - off) * bpt
@@ -250,10 +250,13 @@ def test_all_tiles_part(engines, name):
 
 
 def test_kernel_of_rejects_what_the_kernels_do_not_take():
-    with pytest.raises(NotImplementedError, match="Simple16"):
-        block_decode._kernel_of(("opt", 5, 4, 128))
-    with pytest.raises(ValueError, match="optpfor_decode takes"):
-        block_decode._kernel_of(("optp", 5, 3, 128))
+    # exceptions decoded in the pass go to K1s, patches or none to K1
+    assert block_decode._kernel_of(("opt", 5, 4, 128)) == "optpfor_s16"
+    assert block_decode._kernel_of(("opt", 5, 0, 128)) == "optpfor"
+    assert block_decode._kernel_of(("optp", 5, 4, 128)) == "optpfor"
+    for st in (("optp", 5, 3, 128), ("opt", 5, 3, 128), ("opt", 33, 4, 128), ("opt", 5, 4, 64)):
+        with pytest.raises(ValueError, match="optpfor_decode takes"):
+            block_decode._kernel_of(st)
     with pytest.raises(ValueError, match="interp_decode takes"):
         block_decode._kernel_of(("interp", 5, 32))
     for st in (("var", 32, 128), ("var", 24, 64), ("var", 24, 4, 128)):

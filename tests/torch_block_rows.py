@@ -1,5 +1,5 @@
-"""Seeded full-block rows for the QMX (K8) and Varint-G8IU (K7) decode
-tests, in numpy and the port alone (the card's machine has no jax): well
+"""Seeded full-block rows for the QMX (K8), Varint-G8IU (K7) and in-pass
+OptPFor (K1s) decode tests, in numpy and the port alone (the card's machine has no jax): well
 formed blocks encoded by the port's codecs and laid at random byte
 offsets of one word stream, with their field rows as the engine's tile
 walk fills them, plus the rows a kernel must read outside its block for
@@ -7,17 +7,21 @@ walk fills them, plus the rows a kernel must read outside its block for
 block, malformed fields), and a part laid over them as the engine lays
 one (PartLayout, tiles, blkperm, den rows). Used by
 tests/test_torch_qmx_stage.py (a numpy model of csrc/qmx_decode.cu's row
-prologue against qmx_decode_torch on the CPU) and tests/test_torch_cuda.py
-(the kernels against decode_launch_torch on the card)."""
+prologue against qmx_decode_torch on the CPU), tests/test_torch_ex_inpass.py
+(the in-pass rows against the JAX op and a numpy model of
+csrc/optpfor_s16_decode.cu) and tests/test_torch_cuda.py (the kernels
+against decode_launch_torch on the card)."""
 
 import numpy as np
 import torch
 
+from ds2i_torch.codecs.optpfor import OptPForBlock
 from ds2i_torch.codecs.qmx import QMXBlock
+from ds2i_torch.codecs.simple16 import simple16_encode
 from ds2i_torch.codecs.varint import VarintG8IUBlock
 from ds2i_torch.engine.block_tiles import (
-    BF_B, BF_BOFF, BF_EX_BOFF, BF_EX_W0, BF_NEX, BF_W0, _G_BUCKETS, _NW_BUCKETS, _S_BUCKETS,
-    _bucket, _qmx_stream, _var_stream,
+    BF_B, BF_BOFF, BF_EX_BOFF, BF_EX_W0, BF_NEX, BF_W0, _E_BUCKETS, _G_BUCKETS, _NW_BUCKETS,
+    _S_BUCKETS, _bucket, _opt_stream, _qmx_stream, _var_stream,
 )
 from ds2i_torch.engine.tiles import F_BASE, F_NVALS, N_FIELDS
 from ds2i_torch.ops.block_decode import BLOCK, PartLayout
@@ -155,6 +159,89 @@ def varint_rows(seed=0):
         f[BF_W0], f[BF_B] = w0, 64
         rows.append((64, f, "malformed"))
     return words, [(G, f.astype(np.int32), kind) for G, f, kind in rows]
+
+
+def _opt_values(rng, kind):
+    """128 values whose OptPFor block has the named shape: a few
+    exceptions ("light"), many ("heavy"), none, or 31-bit values (b = 32)."""
+    if kind == "b32":
+        return rng.randint(0, 2 ** 31, size=TILE).astype(np.uint32)
+    base = rng.randint(1, 60)
+    v = rng.randint(0, base, size=TILE).astype(np.uint32)
+    n = {"light": rng.randint(1, 6), "heavy": rng.randint(20, 60), "none": 0}[kind]
+    if n:
+        v[rng.choice(TILE, size=n, replace=False)] = rng.randint(base, base * 5000, size=n)
+    return v
+
+
+def _opt_block(b, slots, stream):
+    """An OptPFor block's bytes built by hand (codecs/optpfor.py layout):
+    b, n_ex = the stream's positions (half its values), the slot words,
+    then the Simple16 words of `stream`."""
+    sw = (TILE * min(b, 32) + 31) // 32
+    slot_words = np.asarray(slots, np.uint32)[:sw]
+    ex = np.asarray(simple16_encode(stream), np.uint32)
+    return np.concatenate([np.array([b, len(stream) // 2], np.uint8),
+                           slot_words.astype("<u4").view(np.uint8), ex.astype("<u4").view(np.uint8)])
+
+
+def s16_rows(seed=0):
+    """(words uint32, [(b, E, fields int32 (N_FIELDS,), kind)]) for the
+    in-pass exception decode, ("opt", b, E, 128) statics with E > 0:
+    well formed blocks with exceptions under their own E bucket ("fit")
+    and under E = 128 ("bucketed"), one under an E below its n_ex
+    ("over_e": positions past E ignored, highs at n_ex + e reading past
+    K as 0), a heavy one under every E bucket ("every_e"); blocks without exceptions and b = 32 blocks under E > 0;
+    hand-built blocks whose positions repeat (int32 wrap of the position
+    prefix sum: "repeat") and whose b is 32 with exceptions (the high
+    shift clips to 31: "b32_ex"); the stream's last block, whose
+    exception window clamps ("stream_end"); and malformed rows (random
+    cursors, bit offsets, counts, BF_B outside 0..31, windows before and
+    past the stream: "malformed")."""
+    rng = np.random.RandomState(seed)
+    kinds = ["light", "light", "heavy", "heavy", "none", "b32", "light"]
+    streams = [_encode(OptPForBlock, _opt_values(rng, k)) for k in kinds]
+    slots = rng.randint(0, 2 ** 32, size=TILE, dtype=np.uint64).astype(np.uint32)
+    p = int(rng.randint(0, TILE))
+    rep = [p] + [(1 << 28) - 1] * 16  # 16 steps of 2^28 wrap back to p
+    rep += list(rng.randint(0, 1 << 20, size=len(rep)))
+    b32 = [5, 40, 30] + list(rng.randint(0, 1 << 27, size=3))
+    hand = [_opt_block(7, slots, rep), _opt_block(32, slots, b32)]
+    order = [*streams[:-1], *hand, streams[-1]]
+    names = [*kinds[:-1], "repeat", "b32_ex", "stream_end"]
+    data, offs = _lay(order, rng)
+    words = data.view("<u4")
+    rows = []
+    for k, off in zip(names, offs):
+        f = np.zeros(N_FIELDS, np.int64)
+        _opt_stream(data, off, TILE, f)
+        f[F_BASE] = rng.randint(0, 1000)
+        b, nex = int(f[BF_B]), int(f[BF_NEX])
+        E = _bucket(max(nex, 1), _E_BUCKETS)
+        rows.append((b, E, f.copy(), k))
+        if E < 128:
+            rows.append((b, 128, f.copy(), "bucketed"))
+        if nex > 4:
+            rows.append((b, _E_BUCKETS[max(_E_BUCKETS.index(E) - 1, 1)], f.copy(), "over_e"))
+        if k == "heavy" and not any(r[3] == "every_e" for r in rows):
+            rows += [(b, e, f.copy(), "every_e") for e in _E_BUCKETS[1:]]
+    nw = len(words)
+    for _ in range(16):
+        f = np.zeros(N_FIELDS, np.int64)
+        f[BF_W0] = rng.randint(-3, nw + 4)
+        f[BF_BOFF] = 8 * rng.randint(0, 4)
+        f[BF_B] = rng.randint(-3, 41)
+        f[BF_NEX] = rng.randint(-3, 260)
+        f[BF_EX_W0] = rng.randint(-10, nw + 10)
+        f[BF_EX_BOFF] = rng.randint(0, 32)
+        f[F_BASE] = rng.randint(0, 1000)
+        f[F_NVALS] = rng.randint(0, TILE + 1)
+        rows.append((int(rng.randint(0, 33)), int(rng.choice(_E_BUCKETS[1:])), f, "malformed"))
+    for xw0 in (nw - 1, nw - 30, -2, -300):  # exception windows at and past the stream's ends
+        f = rows[-1][2].copy()
+        f[BF_EX_W0], f[BF_NEX] = xw0, 128
+        rows.append((rows[-1][0], 128, f, "malformed"))
+    return words, [(b, E, f.astype(np.int32), kind) for b, E, f, kind in rows]
 
 
 def block_part(statics, fields, seed=0, num_docs=5000):
