@@ -70,6 +70,9 @@ doc-range shards, make_engine, replicas and cache_dir.
      kernel optpfor_s16_decode, K1s): a block path (the kernel phase,
      K1s in every mode against its plain version and timed beside its
      bound: slot words, Simple16 words, fields, what it writes; the
+     replicated line: the rows with exceptions repeated 16 times, each
+     copy over its own inputs, one launch a stream past one wave,
+     bit-equal to its plain version and timed alone beside its bound; the
      exhaustive main path, counts set to 0 just before it, K1s launched;
      the part phase with K1s's chain line; the oracle); every row with
      exceptions against the patched engine's K1 bit for bit; its and_skip
@@ -154,6 +157,7 @@ RTOL = 1e-3  # the reference's ranked-test tolerance (test_ranked_queries.cpp:52
 FRONT_DOOR_SHARDS = 4
 TOOL_TIMEOUT_S = 600
 PASSES = 9
+REPLICAS = 16  # copies of the rows with exceptions in K1s's replicated line
 # the least time for a kernel's work: the bytes it must move over the H100
 # SXM's 3.35 TB/s of device memory (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -658,10 +662,10 @@ def block_kernel_phase(eng, index, tag, timed):
     docs alone, the norm cache's; docs with presence flags), through the
     wrapper and through decode_launch_torch on the card: bit equality;
     for the kernels in `timed`, both times per kernel (the freqs and the
-    BM25 docs launch, as a ranked part runs them) and the bound. Returns
-    the JSON entries of the timed kernels the index launches (launches
-    filled later) and each tile's interpolative code words
-    (interp_code_words)."""
+    BM25 docs launch, as a ranked part runs them) and the bound, and for
+    K1s the replicated line (replicated_line). Returns the JSON entries
+    of the timed kernels the index launches (launches filled later) and
+    each tile's interpolative code words (interp_code_words)."""
     import torch
 
     from ds2i_torch.engine.tiles import F_NVALS
@@ -774,6 +778,7 @@ def block_kernel_phase(eng, index, tag, timed):
         if kernel == "optpfor_s16":
             log(f"{tag} kernel phase: {wrapper.__name__}: rows with exceptions decoded in the "
                 f"pass: {rows} of both streams")
+            replicated_line(eng, lay, (gt, gf), bp, freq, code_words, tag)
         name = wrapper.__name__
         entries.append({
             "name": name,
@@ -795,6 +800,110 @@ def block_kernel_phase(eng, index, tag, timed):
             "library_ms": None,
         })
     return entries, code_words
+
+
+def replicated_map(launch, gtile, fld, words, times, bm25=None):
+    """`times` copies of a K1s launch's rows in one launch, each copy
+    reading its own copy of every input, as the rows of an index `times`
+    the size would: copy c's CTAs, rows and blocks after copy c - 1's;
+    one field row a row (fld's row of its tile, BF_W0 and BF_EX_W0 moved
+    into the c-th copy of the words); with bm25 = (freq, blkperm,
+    den_blocks, tile_gblk0) of a docs launch, each block's freq row
+    (blkperm's) and den row (tile_gblk0's) copied. Returns (Launch, its
+    row-to-tile map, fields, words, freq, blkperm, den_blocks,
+    tile_gblk0; the last four None without bm25) on gtile's device, and
+    the launch's block of each block written (int64, on the host)."""
+    import torch
+
+    from ds2i_torch.engine.block_tiles import BF_EX_W0, BF_W0
+    from ds2i_torch.ops.block_decode import Launch
+
+    dev = gtile.device
+    host = launch.host.astype(np.int64)
+    if not (host[:, 2] == 128).all():
+        raise ValueError("replicated_map takes a K1s launch (128 slots a row)")
+    rows = np.concatenate([np.arange(r0, r0 + n) for r0, n in host[:, 3:5]])
+    blocks = np.concatenate([np.arange(b0, b0 + 4 * n) for b0, n in host[:, [5, 4]]])
+    tab = np.tile(host, (times, 1))
+    size = np.tile(host[:, 4], times)
+    tab[:, 3] = np.cumsum(size) - size
+    tab[:, 5] = np.cumsum(4 * size) - 4 * size
+    nw, nrow = len(words), len(rows)
+    if max(tab.max(), times * nw) >= 2**31:
+        raise ValueError("the replicated map's rows, blocks or words pass 2^31")
+    tab = tab.astype(np.int32)
+    tiles = torch.from_numpy(gtile.cpu().numpy()[rows]).to(dev)
+    f = fld[tiles]
+    fld_rep = f.repeat(times, 1)
+    shift = torch.arange(times, dtype=torch.int32, device=dev).repeat_interleave(nrow) * nw
+    fld_rep[:, BF_W0] += shift
+    fld_rep[:, BF_EX_W0] += shift
+    tail = (None,) * 4
+    if bm25 is not None:
+        freq, blkperm, den_blocks, tile_gblk0 = bm25
+        blk = torch.from_numpy(blocks).to(dev)
+        den_rows = (tile_gblk0[tiles][:, None] + torch.arange(4, device=dev)).reshape(-1)
+        tail = (freq[blkperm[blk]].repeat(times, 1), torch.arange(times * len(blocks), device=dev),
+                den_blocks[den_rows].repeat(times, 1), torch.arange(times * nrow, device=dev) * 4)
+    return (Launch(launch.kernel, tab, torch.from_numpy(tab).to(dev)),
+            torch.arange(times * nrow, device=dev), fld_rep, words.repeat(times), *tail), np.tile(
+                blocks, times)
+
+
+def replicated_line(eng, lay, gtiles, bp, freq, code_words, tag):
+    """K1s over the all-tiles part's rows with exceptions repeated
+    REPLICAS times, each copy over its own copy of the words, fields,
+    freq and den rows (replicated_map), one launch a stream, as a pass
+    over an index REPLICAS times the size launches it past one wave: the
+    freqs and the BM25 docs launch (each docs block's freqs from the
+    all-tiles freqs, blkperm of its block) through the wrapper against
+    decode_launch_torch, bit for bit, then timed through the wrapper and
+    alone beside their bound, REPLICAS times block_launch_bytes of the
+    all-tiles launches (no byte read twice). gtiles: the part's (docs,
+    freqs) row-to-tile maps."""
+    import torch
+
+    from ds2i_torch.ops.block_decode import decode_launch_torch, optpfor_s16_decode
+
+    s, dev, nd = eng.state, eng.device, eng.num_docs
+    runs, nbytes = [], 0
+    for mode, is_docs in (("freqs", False), ("bm25", True)):
+        base, gtile = lay.launch("optpfor_s16", is_docs, dev), gtiles[0 if is_docs else 1]
+        nbytes += REPLICAS * block_launch_bytes(eng, base, gtile.cpu().numpy(), mode, code_words)
+        (launch, *args), _ = replicated_map(
+            base, gtile, s.tiles_docs if is_docs else s.tiles_freqs, s.docs_words, REPLICAS,
+            (freq, bp, s.den_blocks, s.tile_gblk0) if is_docs else None)
+        out = torch.empty((launch.end_blk, 32), dtype=torch.int32, device=dev)
+        w = torch.empty((launch.end_blk, 32), dtype=torch.float32, device=dev) if is_docs else None
+        runs.append((mode, launch, args, out, w))
+    max_err = 0.0
+    for mode, launch, (gtile, fld, words, fq, bpr, den, g0), out, w in runs:
+        optpfor_s16_decode(launch, words, fld, gtile, mode, nd, out, w, fq, bpr, den, g0)
+        po = torch.full_like(out, -7)
+        pw = None if w is None else torch.full_like(w, -7.0)
+        decode_launch_torch(launch, words, fld, gtile, mode, nd, po, pw, fq, bpr, den, g0)
+        torch.cuda.synchronize()
+        max_err = max(max_err, float((out.long() - po.long()).abs().max()))
+        if w is not None:
+            max_err = max(max_err, float((w - pw).abs().max()))
+        if not (_same_bits(out, po) and (w is None or _same_bits(w, pw))):
+            raise AssertionError(f"optpfor_s16_decode ({mode}) differs from decode_launch_torch "
+                                 f"on the replicated map: max |err| {max_err}")
+
+    def run():
+        for mode, launch, (gtile, fld, words, fq, bpr, den, g0), out, w in runs:
+            optpfor_s16_decode(launch, words, fld, gtile, mode, nd, out, w, fq, bpr, den, g0)
+
+    ms = cuda_ms(run)
+    dev_ms = device_only_ms(run)
+    bound_ms, bound_by = bound(nbytes)
+    rows = [int(launch.host[:, 4].sum()) for _, launch, *_ in runs]
+    ctas = [launch.n_cta for _, launch, *_ in runs]
+    log(f"{tag} kernel phase: optpfor_s16_decode replicated x{REPLICAS}, each copy over its own "
+        f"inputs: {rows[1]} docs + {rows[0]} freqs rows ({ctas[1]} + {ctas[0]} CTAs), one launch "
+        f"a stream, CUDA == plain bit for bit (max |err| {max_err}); {fmt_ms(dev_ms)} alone, "
+        f"{ms:.4f} ms through the wrapper (median of 5); bound {bound_ms:.4f} ms by {bound_by} "
+        f"({nbytes} bytes)")
 
 
 def part_kernel_phase(eng, plan, code_words, tag, chain=()):

@@ -15,35 +15,69 @@
 //   exceptions K = 2E Simple16 words at (BF_EX_W0, BF_EX_BOFF), each
 //              unpacked by its selector's mode; the stream's value q sits at
 //              index base + q, base the values of the words before it;
-//              indices >= K drop, indices no word reaches read 0;
+//              indices >= K drop (every word holds at least one value, so
+//              each index below K is reached);
 //              positions: the int32 prefix sum of (first, gaps + 1) over
 //              the first E values; exception e < BF_NEX: the high at
 //              index BF_NEX + e (0 where >= K) plus 1, shifted by
 //              clip(BF_B, 0, 31); the sum of those at each slot position
 //              is ORed into the slot;
-//   docs, freqs, pads and weights as K1 (common.cuh:write_full_block_row).
+//   docs, freqs, pads and weights as K1 (common.cuh:write_prefetched_block_row).
 // Every slot equals ds2i_torch/ops/block_decode.py:split_decode_part_torch
 // bit for bit; all integer arithmetic is uint32, wrapping as the JAX op's
 // int32 does.
 //
-// What bounds it on this card: memory, the launch, and a row's chain.
-// A row reads about 4b + 4(2E + 1) bytes of stream and 36 bytes of fields
-// (and, ranked docs, 512 bytes each of freqs and den rows) and writes 512
-// bytes (1,024 with w); its work is a short chain of dependent steps.
-// Design: one warp per row, kWarps rows per CTA, every CTA inside one group
-// (b and E come from the table). The warp stages the row's slot words and
-// its K + 1 exception words in shared memory with cp.async (4-byte copies:
-// the cursors have no alignment) and decodes the slots as K1 does. Lane l
-// then takes a run of c = ceil(K / 32) consecutive exception words: it
-// realigns each by BF_EX_BOFF, reads its selector's mode (the 16 modes
-// held one a lane and read by shuffle, so no lane waits on a table), and a
-// warp scan of the runs' value counts gives each word its first stream
-// index; the lane writes its words' values below K into a shared array.
-// A second warp scan, over runs of ceil(E / 32) values, gives the
-// positions; each valid exception adds high << shift to its slot's word of
-// shared memory (atomicAdd, so repeated positions sum as the JAX op sums),
-// and the sums are ORed into the slots. The docs prefix sum and the writes
-// are K1's. No TMA (rows are unaligned and under 1 KB), no wgmma.
+// What bounds it on this card: a row's chain of dependent steps and the
+// instructions between them, not its bytes. At 1x a ranked pass launches
+// K1s 14 times, each under one wave; a row reads about 4b bytes of slot
+// words, 32 bytes of fields, the Simple16 words its exceptions take and,
+// ranked docs, 512 bytes each of freqs and den rows, and writes 512 bytes
+// (1,024 with w). The function reads only the stream values [0, n_need):
+// with m = min(E, n_ex) valid exceptions (none where n_ex <= 0) the
+// positions take the values [0, m) and the highs the values n_ex + e,
+// e < m, below K, so n_need = min(K, n_ex + m) for 0 < n_ex < K, m for
+// n_ex >= K, 0 for n_ex <= 0 (tests/test_torch_ex_inpass.py:_need, held
+// to the plain op on every seeded and index row). The first design staged
+// all K + 1 words of every row and had each lane walk every value of a
+// run of them: over every tile of the 1x block_optpfor index it staged
+// 10.6x the Simple16 words the needed values take (635,150 against 59,945
+// of both streams); no row there needs more than 22 words, one round of
+// 32. Design, one warp per row, kWarps rows per CTA, every CTA inside one
+// group (b and E from the table):
+//   1. the row's slot words are staged by cp.async (4-byte copies: the
+//      cursors have no alignment) while the exceptions decode;
+//   2. the Simple16 words come in rounds of 32, one word a lane straight
+//      into a register (the realignment's next word by __shfl_down_sync,
+//      lane 31 reading one more); each word's mode comes by shuffle from
+//      the lanes holding the 16 modes, and one warp scan of the counts,
+//      with a carry across rounds, gives each word's first stream index;
+//      the rounds stop, warp-uniform, once the carry reaches n_need;
+//   3. value q = 32 t + lane (below n_need) finds its word from two warp
+//      reductions (__reduce_or_sync of a bit at each word's first index in
+//      [32 t, 32 t + 32), __reduce_add_sync of the words that start
+//      before 32 t) and a popcount, no chain of shuffles; the word's
+//      payload, mode and first index come by shuffle, then the value's
+//      run and offset in the mode: no lane walks a word's values, and
+//      nothing is zeroed but the 128 patch sums (a binary search of the
+//      round's inclusive counts, 5 dependent shuffles, is kept as
+//      docs/k1s_variants/binary_search.patch);
+//   4. the positions are a warp scan of the values held in registers, in
+//      rounds of 32 with a carry; the highs are read from shared memory
+//      (values n_ex + e, stored there as they decode); each valid
+//      exception adds high << shift to its slot's sum (atomicAdd, so
+//      repeated positions sum as the JAX op sums);
+//   5. lane l decodes slots 4l .. 4l + 3 and ORs in their four sums (one
+//      16-byte read); the tail's freq and den loads (common.cuh
+//      prefetch_row_tail) are issued then, and the row is written by
+//      write_prefetched_block_row (one warp scan, 16-byte stores). Issued
+//      with the map entry instead (docs/k1s_variants/
+//      tail_with_map_entry.patch), those loads are held in registers
+//      across the decode.
+// The round itself needs no shared memory: its words, modes and counts
+// stay in the lanes' registers. Shared memory a warp: the staged slot
+// words, the m highs and the 128 sums (12,352 bytes a CTA; ptxas's
+// registers and spills, and each variant's times, are in PERF.md §6). No
+// TMA (rows are unaligned and under 1 KB), no wgmma (no product).
 
 #include "common.cuh"
 
@@ -57,7 +91,7 @@ constexpr int kSteps = kT / 32;
 constexpr int kWarps = 8;     // rows per CTA, one warp each
 constexpr int kStage = 130;   // staged slot words: (31 + 128 * 32) / 32 + 2
 constexpr int kMaxE = 128;    // exception capacity (block_tiles._E_BUCKETS)
-constexpr int kMaxK = 2 * kMaxE;  // Simple16 words read a row
+constexpr int kMaxK = 2 * kMaxE;  // Simple16 words a row reads at most
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // Simple16's modes (codecs/simple16.py:S16_MODES), each at most two runs
@@ -86,9 +120,8 @@ optpfor_s16_part_kernel(const uint32_t* __restrict__ words, long long nw,
                         const float* __restrict__ den_blocks,
                         const long long* __restrict__ tile_gblk0) {
   __shared__ uint32_t s_word[kWarps][kStage];
-  __shared__ uint32_t s_ex[kWarps][kMaxK + 1];
-  __shared__ uint32_t s_elem[kWarps][kMaxK];
-  __shared__ uint32_t s_patch[kWarps][kT];
+  __shared__ uint32_t s_high[kWarps][kMaxE];  // value n_ex + e of the stream
+  __shared__ __align__(16) uint32_t s_patch[kWarps][kT];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int* cta = table + static_cast<size_t>(blockIdx.x) * ds2i::kCtaFields;
@@ -101,11 +134,11 @@ optpfor_s16_part_kernel(const uint32_t* __restrict__ words, long long nw,
   const long long row = static_cast<long long>(cta[ds2i::kCtaRow0]) + warp;
   const long long blk0 = static_cast<long long>(cta[ds2i::kCtaBlk0]) + static_cast<long long>(warp) * kSteps;
   const long long tile = gtile[row];
-
   const int* f = fld + static_cast<size_t>(tile) * N_FIELDS;
   const long long w0 = f[BF_W0];
   const int boff = f[BF_BOFF];
   const int nvals = f[F_NVALS];
+  const int base = f[F_BASE];
   const int nex = f[BF_NEX];
   const long long xw0 = f[BF_EX_W0];
   const uint32_t xboff = static_cast<uint32_t>(f[BF_EX_BOFF]);
@@ -115,95 +148,105 @@ optpfor_s16_part_kernel(const uint32_t* __restrict__ words, long long nw,
   const uint32_t bmask = bs >= 32 ? kFull : (1u << bs) - 1u;
   const uint32_t lane_mode = kS16Modes[lane & 15];
 
-  // stage the slot words the row's bits span and its K + 1 exception words
+  // step 1: the slot words the row's bits span, staged while the exceptions decode
   const long long last_bit = static_cast<long long>(boff) + static_cast<long long>(kT - 1) * bs;
   const int nstage = bs > 0 && boff >= 0
       ? static_cast<int>(min(static_cast<long long>(kStage), (last_bit >> 5) + 2)) : 0;
   for (int i = lane; i < nstage; i += 32) cp_async_word(&s_word[warp][i], words, nw, w0 + i);
-  for (int i = lane; i <= K; i += 32) cp_async_word(&s_ex[warp][i], words, nw, xw0 + i);
-  for (int i = lane; i < K; i += 32) s_elem[warp][i] = 0u;
+  *reinterpret_cast<uint4*>(&s_patch[warp][4 * lane]) = make_uint4(0u, 0u, 0u, 0u);
+
+  // the values the function reads: [0, need) (see the note above)
+  const int m = nex > 0 ? min(E, nex) : 0;
+  const int need = nex <= 0 ? 0 : (nex >= K ? m : min(K, nex + m));
+
+  // step 2: rounds of 32 Simple16 words, one a lane, until `need` values
+  uint32_t val[kMaxE / 32];  // value 32 t + lane of the stream, the position steps' source
 #pragma unroll
-  for (int it = 0; it < kSteps; ++it) s_patch[warp][it * 32 + lane] = 0u;
+  for (int t = 0; t < kMaxE / 32; ++t) val[t] = 0u;
+  uint32_t done = 0;  // values of the words of earlier rounds
+  for (int r = 0; done < static_cast<uint32_t>(need) && r < K; r += 32) {  // warp-uniform
+    const int i = r + lane;
+    const uint32_t lo = load_word(words, nw, xw0 + i);
+    const uint32_t next = __shfl_down_sync(kFull, lo, 1);
+    const uint32_t hi = lane == 31 ? load_word(words, nw, xw0 + r + 32) : next;
+    const uint32_t x = xboff > 0 ? (lo >> xboff) | (hi << (32u - xboff)) : lo;
+    const uint32_t md = __shfl_sync(kFull, lane_mode, static_cast<int>(x >> 28));
+    const uint32_t cnt = i < K ? mode_count(md) : 0u;  // words past K hold no value
+    const uint32_t incl = warp_inclusive_scan(cnt, lane) + done;  // values through word i
+    const uint32_t total = __shfl_sync(kFull, incl, 31);
+    const uint32_t end = min(total, static_cast<uint32_t>(need));
+    // step 3: value q = 32 t + lane of [done, end), its word by two reductions
+#pragma unroll
+    for (int t = 0; t < kMaxK / 32; ++t) {
+      if (32u * t + 32u <= done || 32u * t >= end) continue;  // warp-uniform
+      // q's word: the round's words that start in [32 t, q], after those
+      // that start before 32 t (every word below K holds a value)
+      const uint32_t q = 32u * t + lane;
+      const uint32_t first_i = incl - cnt, lo_t = 32u * t;
+      const uint32_t starts = __reduce_or_sync(
+          kFull, cnt > 0 && first_i >= lo_t && first_i < lo_t + 32u ? 1u << (first_i - lo_t) : 0u);
+      const uint32_t before = __reduce_add_sync(kFull, cnt > 0 && first_i < lo_t ? 1u : 0u);
+      const int j = static_cast<int>(before + __popc(starts & ((2u << lane) - 1u))) - 1;
+      const uint32_t xq = __shfl_sync(kFull, x, j);
+      const uint32_t mq = __shfl_sync(kFull, md, j);
+      const uint32_t first = __shfl_sync(kFull, first_i, j);
+      if (q >= done && q < end) {
+        const uint32_t o = q - first;
+        const uint32_t c0 = mq & 31u, wa = (mq >> 5) & 31u, wb = (mq >> 15) & 31u;
+        const uint32_t sh = o < c0 ? o * wa : c0 * wa + (o - c0) * wb;
+        const uint32_t width = o < c0 ? wa : wb;  // widths are 1..28
+        const uint32_t value = ((xq & 0x0FFFFFFFu) >> sh) & ((1u << width) - 1u);
+        if (t < kMaxE / 32) val[t] = value;
+        if (q >= static_cast<uint32_t>(nex)) s_high[warp][q - nex] = value;
+      }
+    }
+    done = total;
+  }
   cp_async_wait_all();
   __syncwarp();
 
-  uint32_t v[kSteps];
+  // step 4: positions by warp scans of the values in registers; highs
+  uint32_t carry = 0;
 #pragma unroll
-  for (int it = 0; it < kSteps; ++it) {
-    const int j = it * 32 + lane;
-    uint32_t x = 0;
-    if (bs > 0) {
-      // the slot's bits start at bit boff + j*bs of word w0
-      const long long bit = static_cast<long long>(boff) + static_cast<long long>(j) * bs;
-      const long long k = bit >> 5;
-      const uint32_t sh = static_cast<uint32_t>(bit & 31);
-      const uint32_t lo = k >= 0 && k < nstage ? s_word[warp][k] : load_word(words, nw, w0 + k);
-      const uint32_t hi = k + 1 >= 0 && k + 1 < nstage ? s_word[warp][k + 1]
-                                                       : load_word(words, nw, w0 + k + 1);
-      x = ((lo >> sh) | (sh > 0 ? hi << (32u - sh) : 0u)) & bmask;
-    }
-    v[it] = x;
-  }
-
-  // the Simple16 stream: lane l takes words [l c, l c + c) of the K
-  const int c = (K + 31) >> 5;
-  auto ex_word = [&](int i) {
-    const uint32_t lo = s_ex[warp][i];
-    return xboff > 0 ? (lo >> xboff) | (s_ex[warp][i + 1] << (32u - xboff)) : lo;
-  };
-  uint32_t nvals_run = 0;
-  for (int k = 0; k < c; ++k) {  // c is warp-uniform: every lane shuffles
-    const int i = lane * c + k;
-    const uint32_t x = i < K ? ex_word(i) : 0u;
-    const uint32_t m = __shfl_sync(kFull, lane_mode, static_cast<int>(x >> 28));
-    if (i < K) nvals_run += mode_count(m);
-  }
-  uint32_t q = warp_inclusive_scan(nvals_run, lane) - nvals_run;  // the run's first index
-  for (int k = 0; k < c; ++k) {
-    const int i = lane * c + k;
-    const uint32_t x = i < K ? ex_word(i) : 0u;
-    const uint32_t m = __shfl_sync(kFull, lane_mode, static_cast<int>(x >> 28));
-    if (i < K) {
-      uint32_t sh = 0;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const uint32_t cnt = (m >> (10 * r)) & 31u;
-        const uint32_t width = (m >> (10 * r + 5)) & 31u;
-        const uint32_t wmask = (1u << width) - 1u;  // widths are 1..28
-        for (uint32_t t = 0; t < cnt; ++t, ++q, sh += width) {
-          if (q < static_cast<uint32_t>(K)) s_elem[warp][q] = ((x & 0x0FFFFFFFu) >> sh) & wmask;
-        }
-      }
-    }
-  }
-  __syncwarp();
-
-  // positions and highs: lane l takes exceptions [l ce, l ce + ce) of the E
-  const int ce = (E + 31) >> 5;
-  auto step = [&](int e) { return e == 0 ? s_elem[warp][0] : s_elem[warp][e] + 1u; };
-  uint32_t run = 0;
-  for (int k = 0; k < ce; ++k) {
-    const int e = lane * ce + k;
-    if (e < E) run += step(e);
-  }
-  uint32_t pos = warp_inclusive_scan(run, lane) - run;
-  for (int k = 0; k < ce; ++k) {
-    const int e = lane * ce + k;
-    if (e >= E) break;
-    pos += step(e);
+  for (int t = 0; t < kMaxE / 32; ++t) {
+    if (32 * t >= m) break;  // warp-uniform
+    const int e = 32 * t + lane;
+    const uint32_t step = e < m ? (e == 0 ? val[t] : val[t] + 1u) : 0u;
+    const uint32_t pos = warp_inclusive_scan(step, lane) + carry;
+    carry = __shfl_sync(kFull, pos, 31);
     const int p = static_cast<int>(pos);
-    if (e < nex && p >= 0 && p < kT) {
-      const long long hq = static_cast<long long>(nex) + e;
-      const uint32_t high = (hq < K ? s_elem[warp][hq] : 0u) + 1u;
+    if (e < m && p >= 0 && p < kT) {
+      const uint32_t high = (e < K - nex ? s_high[warp][e] : 0u) + 1u;
       atomicAdd(&s_patch[warp][p], high << hshift);
     }
   }
   __syncwarp();
-#pragma unroll
-  for (int it = 0; it < kSteps; ++it) v[it] |= s_patch[warp][it * 32 + lane];
 
-  ds2i::write_full_block_row(v, lane, mode, num_docs, nvals, f + F_BASE, blk0, tile, out, w_out,
-                             freq, blkperm, den_blocks, tile_gblk0);
+  // step 5: slots 4 lane .. 4 lane + 3, their sums ORed in, and the tail
+  const uint4 pq = *reinterpret_cast<const uint4*>(&s_patch[warp][4 * lane]);
+  const uint32_t patch[kSteps] = {pq.x, pq.y, pq.z, pq.w};
+  uint32_t v[kSteps];
+#pragma unroll
+  for (int k = 0; k < kSteps; ++k) {
+    const int j = 4 * lane + k;
+    uint32_t x = 0;
+    if (bs > 0) {
+      // the slot's bits start at bit boff + j*bs of word w0
+      const long long bit = static_cast<long long>(boff) + static_cast<long long>(j) * bs;
+      const long long kw = bit >> 5;
+      const uint32_t sh = static_cast<uint32_t>(bit & 31);
+      const uint32_t lo = kw >= 0 && kw < nstage ? s_word[warp][kw] : load_word(words, nw, w0 + kw);
+      const uint32_t hi = kw + 1 >= 0 && kw + 1 < nstage ? s_word[warp][kw + 1]
+                                                         : load_word(words, nw, w0 + kw + 1);
+      x = ((lo >> sh) | (sh > 0 ? hi << (32u - sh) : 0u)) & bmask;
+    }
+    v[k] = x | patch[k];
+  }
+  // the tail's freq and den loads issued here, not with the map entry: held
+  // across the decode they cost registers and a launch's throughput
+  const ds2i::RowTail tail = ds2i::prefetch_row_tail(mode, lane, blk0, tile, freq, blkperm,
+                                                     den_blocks, tile_gblk0);
+  ds2i::write_prefetched_block_row(v, lane, mode, num_docs, nvals, base, blk0, out, w_out, tail);
 }
 
 }  // namespace
@@ -213,8 +256,9 @@ optpfor_s16_part_kernel(const uint32_t* __restrict__ words, long long nw,
 // are K1's (csrc/optpfor_decode.cu:ds2i_optpfor_decode_part): fld is the
 // stream's resident field table, gtile the part's row-to-tile map
 // (int64), mode (common.cuh Mode) picks what is written; max_w and max_t
-// must be 0 and 128. Launches on `stream`, does not synchronise, and
-// returns cudaGetLastError().
+// must be 0 and 128; out, w, freq and den_blocks lie on 16-byte
+// boundaries (the tail's vectors). Launches on `stream`, does not
+// synchronise, and returns cudaGetLastError().
 extern "C" int ds2i_optpfor_s16_decode_part(
     const void* words, long long nw, const void* fld, const void* gtile, const void* table,
     int n_cta, int max_w, int max_t, int mode, int num_docs, void* out, void* w,
@@ -225,6 +269,10 @@ extern "C" int ds2i_optpfor_s16_decode_part(
       (mode == ds2i::kDocsBm25 && (freq == nullptr || blkperm == nullptr ||
                                    den_blocks == nullptr || tile_gblk0 == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (ds2i::misaligned16(out) || ds2i::misaligned16(w) || ds2i::misaligned16(freq) ||
+      ds2i::misaligned16(den_blocks)) {
+    return static_cast<int>(cudaErrorMisalignedAddress);  // the 16-byte vectors of the tail
   }
   if (n_cta == 0) return static_cast<int>(cudaGetLastError());
   optpfor_s16_part_kernel<<<n_cta, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(

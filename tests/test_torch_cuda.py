@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from ds2i_torch.engine import ResidentEngine, resident
 from ds2i_torch.host import (
     BinaryFreqCollection, GlobalParameters, WandData, generate_collection,
@@ -35,7 +36,9 @@ from ds2i_torch.ops.block_decode import (
 from ds2i_torch.ops.pair_decode import (
     decode_pair, decode_pair_launch_torch, pair_decode_part, pair_decode_part_torch,
 )
-from torch_block_rows import block_part, qmx_rows, s16_rows, varint_rows
+from torch_block_rows import (
+    block_part, qmx_rows, s16_more_rows, s16_rows, varint_rows,
+)
 from torch_join_rows import KINDS, bucket_layout, bucket_of, special_rows
 
 pytestmark = pytest.mark.cuda
@@ -234,35 +237,39 @@ def test_inpass_kernel_on_seeded_rows(cuda, seed):
     """K1s on the seeded edge rows of tests/torch_block_rows.py:s16_rows
     (every E bucket; n_ex above E; highs past the K stream values;
     repeated positions; b = 32 with exceptions and BF_B outside 0..31;
-    exception windows clamped at the stream's ends; malformed cursors),
-    laid as a part of one group per ("opt", b, E, 128) statics: one launch
-    per mode (freqs; docs alone, with presence flags, with BM25 weights)
-    against decode_launch_torch on the card, bit for bit, one counted
-    launch each."""
-    words, rows = s16_rows(seed)
-    assert {E for _, E, _, _ in rows} == set(block_decode._E_BUCKETS[1:])
-    lay, t = block_part([("opt", b, E, 128) for b, E, _, _ in rows], [f for _, _, f, _ in rows],
-                        seed)
-    words = torch.from_numpy(words.view(np.int32)).to(cuda)
-    fld, gtile, freq, bp, den, g0 = (t[k].to(cuda) for k in (
-        "fld", "gtile", "freq", "blkperm", "den_blocks", "tile_gblk0"))
+    exception windows clamped at the stream's ends; malformed cursors)
+    and of s16_more_rows (values over up to 8 rounds of words, a last
+    value inside a word, n_ex <= 0, every round past the stream's end),
+    each set over its own words, laid as a part of one group per ("opt",
+    b, E, 128) statics: one launch per mode (freqs; docs alone, with
+    presence flags, with BM25 weights) against decode_launch_torch on the
+    card, bit for bit, one counted launch each."""
+    sets = (s16_rows(seed), s16_more_rows(seed))
+    assert {E for _, E, _, _ in sets[0][1]} == set(block_decode._E_BUCKETS[1:])
     wrapper = block_decode.optpfor_s16_decode
-    for mode in ("freqs", "docs", "presence", "bm25"):
-        launch = lay.launch("optpfor_s16", mode != "freqs", cuda)
-        assert launch.n_cta > 1
-        outs = []
-        for fn in (wrapper, decode_launch_torch):
-            out = torch.full((lay.nb_d, 32), -7, dtype=torch.int32, device=cuda)
-            w = torch.full((lay.nb_d, 32), -7.0, device=cuda) if mode in ("bm25", "presence") else None
-            before = wrapper.launches
-            fn(launch, words, fld, gtile, mode, t["num_docs"], out, w, freq, bp, den, g0)
-            torch.cuda.synchronize()
-            assert wrapper.launches == before + (fn is wrapper)
-            outs.append((out, w))
-        (go, gw), (po, pw) = outs
-        _same_bits(go, po)
-        if gw is not None:
-            _same_bits(gw, pw)
+    for words, rows in sets:
+        lay, t = block_part([("opt", b, E, 128) for b, E, _, _ in rows],
+                            [f for _, _, f, _ in rows], seed)
+        words = torch.from_numpy(words.view(np.int32)).to(cuda)
+        fld, gtile, freq, bp, den, g0 = (t[k].to(cuda) for k in (
+            "fld", "gtile", "freq", "blkperm", "den_blocks", "tile_gblk0"))
+        for mode in ("freqs", "docs", "presence", "bm25"):
+            launch = lay.launch("optpfor_s16", mode != "freqs", cuda)
+            assert launch.n_cta > 1
+            outs = []
+            for fn in (wrapper, decode_launch_torch):
+                out = torch.full((lay.nb_d, 32), -7, dtype=torch.int32, device=cuda)
+                w = (torch.full((lay.nb_d, 32), -7.0, device=cuda)
+                     if mode in ("bm25", "presence") else None)
+                before = wrapper.launches
+                fn(launch, words, fld, gtile, mode, t["num_docs"], out, w, freq, bp, den, g0)
+                torch.cuda.synchronize()
+                assert wrapper.launches == before + (fn is wrapper)
+                outs.append((out, w))
+            (go, gw), (po, pw) = outs
+            _same_bits(go, po)
+            if gw is not None:
+                _same_bits(gw, pw)
 
 
 def _lowered_limit_engine(index, device):
@@ -319,6 +326,49 @@ def test_inpass_kernel_matches_plain_on_every_group(cuda, coll):
     (gd, gw), (pd, pw) = split_decode_part(*args), split_decode_part_torch(*args)
     _same_bits(gd, pd)
     _same_bits(gw, pw)
+
+
+def test_inpass_kernel_on_replicated_map(cuda, coll):
+    """K1s on the shape of chip_smoke.py's replicated line: the all-tiles
+    part's rows with exceptions repeated chip_smoke.REPLICAS times, each
+    copy over its own copy of the words, fields, freq and den rows
+    (chip_smoke.replicated_map), one launch a stream, freqs and BM25 docs
+    (each docs block's freqs from the all-tiles freqs, blkperm of its
+    block), against decode_launch_torch on the card, bit for bit, one
+    counted launch each; a misaligned output raises."""
+    eng = _lowered_limit_engine(build(coll, "block_optpfor"), cuda)
+    eng._ensure_norm_cache()
+    s, nd = eng.state, eng.num_docs
+    gt, gf, bp, lay = eng.all_tiles_part()[:4]
+    freq = torch.empty((lay.nb_f, 32), dtype=torch.int32, device=cuda)
+    for kernel in KERNELS:
+        block_decode.WRAPPERS[kernel](lay.launch(kernel, False, cuda), s.docs_words,
+                                      s.tiles_freqs, gf, "freqs", nd, freq)
+    wrapper = block_decode.optpfor_s16_decode
+    times = chip_smoke.REPLICAS
+    for mode, gtile0, table in (("freqs", gf, s.tiles_freqs), ("bm25", gt, s.tiles_docs)):
+        base = lay.launch("optpfor_s16", mode != "freqs", cuda)
+        bm25 = (freq, bp, s.den_blocks, s.tile_gblk0) if mode == "bm25" else None
+        (launch, gtile, fld, words, *tail), _ = chip_smoke.replicated_map(
+            base, gtile0, table, s.docs_words, times, bm25)
+        assert launch.n_cta == times * base.n_cta
+        assert int(launch.host[:, 4].sum()) == times * int(base.host[:, 4].sum())
+        outs = []
+        for fn in (wrapper, decode_launch_torch):
+            out = torch.full((launch.end_blk, 32), -7, dtype=torch.int32, device=cuda)
+            w = torch.full((launch.end_blk, 32), -7.0, device=cuda) if mode == "bm25" else None
+            before = wrapper.launches
+            fn(launch, words, fld, gtile, mode, nd, out, w, *tail)
+            torch.cuda.synchronize()
+            assert wrapper.launches == before + (fn is wrapper)
+            outs.append((out, w))
+        (go, gw), (po, pw) = outs
+        _same_bits(go, po)
+        if gw is not None:
+            _same_bits(gw, pw)
+    off = torch.empty(launch.end_blk * 32 + 1, dtype=torch.int32, device=cuda)[1:].view(-1, 32)
+    with pytest.raises(RuntimeError, match="misaligned"):  # the tail's 16-byte vectors
+        wrapper(launch, words, fld, gtile, "docs", nd, off)
 
 
 @pytest.mark.parametrize("prune", [False, True])

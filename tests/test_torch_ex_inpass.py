@@ -11,9 +11,11 @@ word limit, on the CPU, against the JAX package:
     every OptPFor group with exceptions of a small block_optpfor index,
     both streams; those groups also equal the port's patch path
     ("optp");
-  - a numpy model of the kernel's warp (its runs of words and values a
-    lane, its two warp scans, its shared-memory scatter and atomic sums)
-    against the plain op on the same rows;
+  - a numpy model of the kernel's warp, lane by lane (its rounds of 32
+    Simple16 words stopped at the values the op needs, each value's
+    search for its word, the positions scan in rounds, the highs from
+    shared memory and the atomic sums) against the plain op on the same
+    rows and on every row with exceptions of the small index;
   - ResidentEngine with engine.resident.RESIDENT_WORD_LIMIT lowered
     below its words plus patch pairs against the JAX engine with
     DS2I_EX_PATCH=0: statics, tables and words, plans, decoded parts,
@@ -21,7 +23,7 @@ word limit, on the CPU, against the JAX package:
     exhaustive and prune=True; cache_dir cold and warm under the lowered
     limit; make_engine over the index.
 
-About 130 s serially on the build host's CPU (the JAX compiles of the op's
+About 165 s serially on the build host's CPU (the JAX compiles of the op's
 static classes and engines dominate)."""
 
 import contextlib
@@ -42,10 +44,11 @@ from ds2i_tpu.io import generate_collection
 from ds2i_tpu.ops.optpfor_device import optpfor_decode
 from ds2i_tpu.queries import read_queries
 
+import chip_smoke
 from ds2i_torch.codecs.simple16 import S16_MODES
 from ds2i_torch.engine import ResidentEngine, make_engine, resident
 from ds2i_torch.engine.block_tiles import (
-    BF_B, BF_BOFF, BF_EX_BOFF, BF_EX_W0, BF_NEX, BF_W0, _E_BUCKETS, _bucket,
+    BF_B, BF_BOFF, BF_EX_BOFF, BF_EX_W0, BF_NEX, BF_W0, _E_BUCKETS, _bucket, _s16_words,
 )
 from ds2i_torch.engine.tiles import F_NVALS
 from ds2i_torch.ops import block_decode
@@ -56,7 +59,7 @@ from test_torch_resident import _assert_topk_close, _plan_arrays
 from test_torch_split_decode import (
     check_cta_tables, check_launches_compose, check_part_decode_equals_jax,
 )
-from torch_block_rows import s16_rows
+from torch_block_rows import s16_more_rows, s16_rows
 
 M32 = 0xFFFFFFFF
 KW = dict(max_part_slots=1 << 13, max_part_queries=16)
@@ -185,7 +188,7 @@ def test_inpass_op_matches_jax_on_edge_rows():
     # the repeat row: exceptions 0 and 16 land on one slot, whose sum the
     # op takes (the encoded highs 1 + h0 and 1 + h16 shifted by 7)
     b, E, f, _ = next(r for r in rows if r[3] == "repeat")
-    pos, high = _model_row(words, f, E)[1:]
+    pos, high = _model_row(words, f, E)[1:3]
     nex = int(f[BF_NEX])
     assert pos[0] == pos[16] and 0 <= pos[0] < 128 and nex == 17
     got = port_inpass(words, f[None], b, E)[0].view(np.uint32)
@@ -201,72 +204,98 @@ def test_inpass_op_matches_jax_on_edge_rows():
 _MODES = [sum(c << (10 * r) | w << (10 * r + 5) for r, (c, w) in enumerate(m)) for m in S16_MODES]
 
 
+def _need(nex, E):
+    """The stream values [0, need) the op reads of a row: m = min(E, n_ex)
+    exceptions are valid (none where n_ex <= 0); their positions take the
+    values [0, m), their highs the values n_ex + e, e < m, below K = 2E.
+    So need = min(K, n_ex + m) for n_ex < K, and m for n_ex >= K (every
+    high then reads past K)."""
+    K = 2 * E
+    m = min(E, nex) if nex > 0 else 0
+    return m, (0 if nex <= 0 else m if nex >= K else min(K, nex + m))
+
+
 def _model_row(words, f, E):
     """One row's exception decode as the kernel's warp does it, lane by
-    lane: (patch sums (128,), positions (E,), highs (E,) as the lanes
-    compute them (positions as int32; highs for e < n_ex, else 0))."""
+    lane: rounds of 32 Simple16 words, one a lane (lane 31 reading the
+    realignment's next word), stopped once the values of the words read
+    reach _need; each value q = 32 t + lane of a round found in its word
+    by two warp reductions (a bit at each word's first index inside the
+    32 values of t, and the words that start before them) and a popcount; the
+    positions a warp scan of the values of lanes' registers in rounds of
+    32 with a carry, the highs read from the values stored at n_ex + e
+    (a high that was never stored raises KeyError: a needed value the
+    rounds did not reach). Returns (patch sums (128,), positions (E,),
+    highs (E,), words read): positions as int32 and highs for e < min(E,
+    n_ex), else 0."""
     nw = len(words)
     w = np.asarray(words).view(np.uint32).astype(np.int64)
     K = 2 * E
     xw0, xboff = int(f[BF_EX_W0]), int(f[BF_EX_BOFF])
     nex, fb = int(f[BF_NEX]), int(f[BF_B])
     shift = min(max(fb, 0), 31)
-    s_ex = [int(w[min(max(xw0 + i, 0), nw - 1)]) for i in range(K + 1)]
+    m, need = _need(nex, E)
 
-    def ex_word(i):
-        lo = s_ex[i]
-        return ((lo >> xboff) | (s_ex[i + 1] << (32 - xboff))) & M32 if xboff else lo
+    def load(i):
+        return int(w[min(max(xw0 + i, 0), nw - 1)])
 
-    c = (K + 31) >> 5
-    runs = []
-    for lane in range(32):
-        n = 0
-        for k in range(c):
-            i = lane * c + k
-            if i < K:
-                m = _MODES[ex_word(i) >> 28]
-                n += (m & 31) + ((m >> 10) & 31)
-        runs.append(n)
-    first = np.cumsum(runs) - runs  # the warp scan, exclusive
-    elem = [0] * K
-    for lane in range(32):
-        q = int(first[lane])
-        for k in range(c):
-            i = lane * c + k
-            if i >= K:
+    val = np.zeros((4, 32), np.int64)  # value 32 t + lane, t < 4, in lane's registers
+    s_high = {}  # value n_ex + e at e
+    done = r = nread = 0
+    while done < need and r < K:
+        lo = [load(r + lane) for lane in range(32)]
+        hi = lo[1:] + [load(r + 32)]  # __shfl_down_sync; lane 31 loads
+        nread += 33
+        x = [((a >> xboff) | (c << (32 - xboff))) & M32 if xboff else a for a, c in zip(lo, hi)]
+        md = [_MODES[v >> 28] for v in x]
+        cnt = [(mm & 31) + ((mm >> 10) & 31) if r + lane < K else 0
+               for lane, mm in enumerate(md)]
+        incl = [int(c) + done for c in np.cumsum(cnt)]  # the warp scan and its carry
+        end = min(incl[31], need)
+        for t in range(8):
+            if 32 * t + 32 <= done or 32 * t >= end:
                 continue
-            x = ex_word(i)
-            m = _MODES[x >> 28]
-            sh = 0
-            for r in range(2):
-                cnt, width = (m >> (10 * r)) & 31, (m >> (10 * r + 5)) & 31
-                for _ in range(cnt):
-                    if q < K:
-                        elem[q] = ((x & 0x0FFFFFFF) >> sh) & ((1 << width) - 1)
-                    q += 1
-                    sh += width
-    ce = (E + 31) >> 5
-    step = lambda e: elem[0] if e == 0 else (elem[e] + 1) & M32  # noqa: E731
-    runs = [sum(step(lane * ce + k) for k in range(ce) if lane * ce + k < E) & M32
-            for lane in range(32)]
-    before = (np.cumsum(runs) - runs) & M32
+            first = [i - c for i, c in zip(incl, cnt)]
+            starts = 0  # __reduce_or_sync: a bit at each word's first index in the window
+            for c, fi in zip(cnt, first):
+                if c and 32 * t <= fi < 32 * t + 32:
+                    starts |= 1 << (fi - 32 * t)
+            before = sum(1 for c, fi in zip(cnt, first) if c and fi < 32 * t)  # __reduce_add_sync
+            for lane in range(32):
+                q = 32 * t + lane
+                j = before + bin(starts & ((2 << lane) - 1)).count("1") - 1
+                if not done <= q < end:
+                    continue
+                mq, o = md[j], q - first[j]
+                c0, wa, wb = mq & 31, (mq >> 5) & 31, (mq >> 15) & 31
+                sh, width = (o * wa, wa) if o < c0 else (c0 * wa + (o - c0) * wb, wb)
+                value = ((x[j] & 0x0FFFFFFF) >> sh) & ((1 << width) - 1)
+                if t < 4:
+                    val[t, lane] = value
+                if q >= nex:
+                    s_high[q - nex] = value
+        done = incl[31]
+        r += 32
     patch = np.zeros(128, np.int64)
     pos_all, high_all = np.zeros(E, np.int64), np.zeros(E, np.int64)
-    for lane in range(32):
-        p = int(before[lane])
-        for k in range(ce):
-            e = lane * ce + k
-            if e >= E:
-                break
-            p = (p + step(e)) & M32
-            ps = p - (1 << 32) if p >= 1 << 31 else p
+    carry = 0
+    for t in range(4):
+        if 32 * t >= m:
+            break
+        steps = [(val[t, lane] if 32 * t + lane == 0 else val[t, lane] + 1)
+                 if 32 * t + lane < m else 0 for lane in range(32)]
+        pos = [(int(c) + carry) & M32 for c in np.cumsum(steps)]
+        carry = pos[31]
+        for lane in range(32):
+            e = 32 * t + lane
+            if e >= m:
+                continue
+            ps = pos[lane] - (1 << 32) if pos[lane] >= 1 << 31 else pos[lane]
             pos_all[e] = ps
-            if e < nex:
-                hq = nex + e
-                high_all[e] = (elem[hq] if hq < K else 0) + 1
-                if 0 <= ps < 128:
-                    patch[ps] = (patch[ps] + (high_all[e] << shift)) & M32
-    return patch, pos_all, high_all
+            high_all[e] = (s_high[e] if e < K - nex else 0) + 1
+            if 0 <= ps < 128:
+                patch[ps] = (patch[ps] + (high_all[e] << shift)) & M32
+    return patch, pos_all, high_all, nread
 
 
 def model_inpass(words, fields, b, E):
@@ -281,11 +310,69 @@ def model_inpass(words, fields, b, E):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_kernel_model_matches_plain_on_edge_rows(seed):
-    words, rows = s16_rows(seed)
-    for (b, E), idx in _by_statics(rows).items():
-        f = np.stack([rows[i][2] for i in idx])
-        np.testing.assert_array_equal(model_inpass(words, f, b, E), port_inpass(words, f, b, E),
-                                      err_msg=f"seed {seed} b={b} E={E}")
+    """The warp model against the plain op on every seeded edge row, of
+    s16_rows and of s16_more_rows (each over its own words); the
+    hand-built rows of s16_more_rows reach the model's branches: "long"
+    rows read more than one round of words and one reads all K, a
+    "mid_word" row's last needed value lies inside a word of 14 or 28
+    values, "nex_le0" rows read no word, the malformed windows at the
+    stream's end read all K."""
+    for words, rows in (s16_rows(seed), s16_more_rows(seed)):
+        for (b, E), idx in _by_statics(rows).items():
+            f = np.stack([rows[i][2] for i in idx])
+            np.testing.assert_array_equal(model_inpass(words, f, b, E),
+                                          port_inpass(words, f, b, E),
+                                          err_msg=f"seed {seed} b={b} E={E}")
+    nread = {k: [_model_row(words, f, E)[3] for _, E, f, kk in rows if kk == k]
+             for k in ("long", "mid_word", "nex_le0", "malformed")}
+    assert min(nread["long"]) > 33 and max(nread["long"]) == 8 * 33
+    assert nread["nex_le0"] == [0, 0] and nread["malformed"] == [8 * 33, 8 * 33]
+    w = np.asarray(words).view(np.uint32)
+    inside = []
+    for _, E, f, k in rows:
+        if k == "mid_word":
+            n, need, i = 0, _need(int(f[BF_NEX]), E)[1], 0
+            while n < need:  # the stream's words up to the one holding value need - 1
+                x = int(w[f[BF_EX_W0] + i])
+                x = (x >> int(f[BF_EX_BOFF]) | int(w[f[BF_EX_W0] + i + 1]) << (
+                    32 - int(f[BF_EX_BOFF]))) & M32 if f[BF_EX_BOFF] else x
+                n += sum(c for c, _ in S16_MODES[x >> 28])
+                i += 1
+            inside.append(n > need)  # the word holding value need - 1 holds more
+    assert inside and all(inside)
+
+
+def test_kernel_model_matches_plain_on_every_exception_row(engines):
+    """The warp model against the plain op on every row with exceptions of
+    the small index's "opt" groups, both streams, row by row; each row
+    reads ceil(words / 32) rounds, words the Simple16 words that the
+    values it needs take (block_tiles._s16_words, walked from the index
+    bytes). About 1 s serially on the build host's CPU (the engines fixture aside)."""
+    inpass, _, _, index, _, _ = engines
+    words = inpass.state.docs_words.numpy()
+    data = np.concatenate([np.asarray(index.lists, np.uint8), np.zeros(8, np.uint8)])
+    rows = 0
+    for gid, statics, table in ((inpass.tile_gid_d, inpass.group_statics_d,
+                                 inpass.state.tiles_docs),
+                                (inpass.tile_gid_f, inpass.group_statics_f,
+                                 inpass.state.tiles_freqs)):
+        f_all = table.numpy()
+        for gi, st in enumerate(statics):
+            if not (st[0] == "opt" and st[2] > 0):
+                continue
+            for t in np.flatnonzero(gid == gi):
+                f = f_all[t]
+                if f[BF_NEX] <= 0:
+                    continue
+                got = model_inpass(words, f[None], st[1], st[2])
+                np.testing.assert_array_equal(got, port_inpass(words, f[None], st[1], st[2]),
+                                              err_msg=f"tile {t} statics {st}")
+                need = _need(int(f[BF_NEX]), st[2])[1]
+                pos = 4 * int(f[BF_EX_W0]) + int(f[BF_EX_BOFF]) // 8
+                rounds = -(-_s16_words(data, pos, need) // 32)
+                assert _model_row(words, f, st[2])[3] == 33 * rounds
+                rows += 1
+    assert rows > 100
 
 
 # -- the engine past its word limit --------------------------------------------
@@ -431,6 +518,46 @@ def test_inpass_launches_compose_to_the_part(engines, weights):
     assert {"optpfor_s16", "interp"} <= check_cta_tables(inpass, qs) <= {
         "optpfor", "optpfor_s16", "interp"}
     check_launches_compose(inpass, qs, weights)
+
+
+def test_replicated_map_repeats_the_rows(engines):
+    """chip_smoke.replicated_map (its replicated line): 3 copies of each
+    K1s launch of the in-pass engine's all-tiles part, each over its own
+    copy of the words, fields, freq and den rows, through the wrapper on
+    the CPU, write the launch's own blocks three times over, freqs and
+    BM25 docs (each docs block's freqs from the all-tiles freqs, blkperm
+    of its block); no copy reads another's words."""
+    inpass = engines[0]
+    s, nd = inpass.state, inpass.num_docs
+    gt, gf, bp, lay = inpass.all_tiles_part()[:4]
+    freq = torch.zeros((lay.nb_f, 32), dtype=torch.int32)
+    for kernel in block_decode.KERNELS:
+        block_decode.WRAPPERS[kernel](lay.launch(kernel, False, "cpu"), s.docs_words,
+                                      s.tiles_freqs, gf, "freqs", nd, freq)
+    nw = len(s.docs_words)
+    for mode, gtile0, table, nb in (("freqs", gf, s.tiles_freqs, lay.nb_f),
+                                    ("bm25", gt, s.tiles_docs, lay.nb_d)):
+        base = lay.launch("optpfor_s16", mode != "freqs", "cpu")
+        out0, w0 = torch.zeros((nb, 32), dtype=torch.int32), torch.zeros((nb, 32))
+        block_decode.optpfor_s16_decode(base, s.docs_words, table, gtile0, mode, nd, out0, w0,
+                                        freq, bp, s.den_blocks, s.tile_gblk0)
+        bm25 = (freq, bp, s.den_blocks, s.tile_gblk0) if mode == "bm25" else None
+        (launch, *args), blocks = chip_smoke.replicated_map(base, gtile0, table, s.docs_words, 3,
+                                                           bm25)
+        assert launch.n_cta == 3 * base.n_cta and launch.end_blk == len(blocks)
+        nrow = int(base.host[:, 4].sum())
+        assert len(blocks) == 3 * 4 * nrow
+        fld = args[1]
+        for c in range(3):  # copy c's windows lie in the c-th copy of the words
+            rows = fld[c * nrow:(c + 1) * nrow]
+            assert bool(((rows[:, BF_EX_W0] >= c * nw) & (rows[:, BF_EX_W0] < (c + 1) * nw)).all())
+        out, w = torch.zeros((launch.end_blk, 32), dtype=torch.int32), torch.zeros(
+            (launch.end_blk, 32))
+        block_decode.optpfor_s16_decode(launch, args[2], fld, args[0], mode, nd, out, w, *args[3:])
+        idx = torch.from_numpy(blocks)
+        assert torch.equal(out, out0[idx])
+        if mode == "bm25":
+            assert torch.equal(w, w0[idx]) and bool((w > 0).any())
 
 
 @pytest.mark.parametrize("prune", [False, True])

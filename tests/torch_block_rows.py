@@ -244,6 +244,52 @@ def s16_rows(seed=0):
     return words, [(b, E, f.astype(np.int32), kind) for b, E, f, kind in rows]
 
 
+def s16_more_rows(seed=0):
+    """(words uint32, [(b, E, fields int32 (N_FIELDS,), kind)]): in-pass
+    rows of their own stream, hand-built to reach the rounds of
+    csrc/optpfor_s16_decode.cu: "long" blocks of one 28-bit value a
+    Simple16 word and n_ex 64..128 (the values the op reads span 4 to 8
+    rounds of 32 words, up to all K; the position gaps 2^28 - 1 wrap so
+    that every 16th exception lands on one slot; the last block ends the
+    stream, so its last word's neighbour clamps); "mid_word" blocks whose
+    last value read lies inside a word of 28 1-bit or 14 2-bit values;
+    "nex_le0" rows (one of those blocks with n_ex 0 or -3 under E > 0:
+    no exception is valid); and malformed rows, the last "long" block's
+    fields with n_ex 128 under E = 128, whose exception window starts at
+    the stream's last word or 40 words before it (all K words read, the
+    rounds past the end clamped to its last word)."""
+    rng = np.random.RandomState(1000 + seed)
+    slots = rng.randint(0, 2 ** 32, size=TILE, dtype=np.uint64).astype(np.uint32)
+    b, streams, kinds = 7, [], []
+    for bits, nex in ((1, 20), (2, 10)):  # need = 2 n_ex ends inside a word of 28 or 14
+        streams.append(list(rng.randint(0, 1 << bits, size=2 * nex)))
+        kinds.append("mid_word")
+    for nex in (int(rng.randint(64, 128)), 128):
+        gaps = [int(rng.randint(0, TILE))] + [(1 << 28) - 1] * (nex - 1)
+        streams.append(gaps + list(rng.randint(1 << 14, 1 << 28, size=nex)))
+        kinds.append("long")
+    data, offs = _lay([_opt_block(b, slots, s) for s in streams], rng)
+    words = data.view("<u4")
+    rows = []
+    for k, off in zip(kinds, offs):
+        f = np.zeros(N_FIELDS, np.int64)
+        _opt_stream(data, off, TILE, f)
+        f[F_BASE] = rng.randint(0, 1000)
+        E = _bucket(int(f[BF_NEX]), _E_BUCKETS)
+        for e in sorted({E, 128} | ({64} if k == "long" else set())):  # long: n_ex > E = 64 too
+            rows.append((b, e, f.copy(), k))
+    for nex, E in ((0, 8), (-3, 128)):
+        f = rows[0][2].copy()
+        f[BF_NEX] = nex
+        rows.append((b, E, f, "nex_le0"))
+    nw, last = len(words), next(r[2] for r in rows[::-1] if r[3] == "long")
+    for xw0 in (nw - 1, nw - 40):  # exception windows from the stream's last words
+        f = last.copy()
+        f[BF_EX_W0], f[BF_NEX] = xw0, 128
+        rows.append((b, 128, f, "malformed"))
+    return words, [(b, E, f.astype(np.int32), kind) for b, E, f, kind in rows]
+
+
 def block_part(statics, fields, seed=0, num_docs=5000):
     """A split-mode part over the given rows, laid as the engine lays one:
     one group per distinct statics (its rows in the given order, split
