@@ -39,7 +39,28 @@ doc-range shards, make_engine, replicas and cache_dir.
   7. oracle phase: the first 300 queries against the numpy oracle
      (counts exact, top-10 scores within rtol 1e-3); then
      ranked_and(prune=True) against the exhaustive ranked_and on them
-     (pair mode's block-max decode pass and probe)
+     (pair mode's block-max decode pass and probe); then that engine's
+     and_counts, or_counts, ranked_and and ranked_or over the whole log,
+     kept for the next phase
+  7b. generations phase (generations_phase; every count set to 0 just
+     before it): the JAX package's earlier engine generations, each over
+     a DeviceIndex on the card. K9 (`decode_rows`, csrc/segment_decode.cu)
+     over every docs and every freqs segment of the 1x `opt` and `ef`
+     indexes, one launch each, against decode_rows_torch bit for bit (the
+     plain version a call a bucket of pow4 window words), 200 random lists
+     of each through DeviceIndex against the host decoder, the `opt` docs
+     call timed through the wrapper, alone and plain beside its bound by
+     bytes (segment_bytes); K6g (`decode_group`, csrc/tile_decode.cu) on
+     every group of the `opt` tile layout over every list, both streams,
+     against _decode_stream on the n_vals slots, timed the same way
+     (tile_group_bytes). Then the path, its counts set to 0 again:
+     QueryEngine, FlatQueryEngine and TileQueryEngine over the whole log
+     on `opt`, counts equal to the exhaustive ResidentEngine's and top-10
+     within rtol 1e-3, query by query, with each op's seconds and
+     us/query and the launches of K9 and K6g; the same three over `ef`
+     against the oracle on 300 queries; then make_sharded_plane_step on a
+     (1, 1) mesh of cuda:0 and a (2, 2) grid of cuda:0 against the port's
+     CPU mesh on a seeded batch
   block_optpfor path (split mode, kernels optpfor_decode and
   interp_decode, one launch per kernel and stream of a part; block_path):
   the kernel phase over every tile (each kernel's launches in every mode
@@ -1195,10 +1216,10 @@ def main_path(eng, queries, path_kernels, tag, prune=False, before=None, join_en
 
 def kernel_wrappers():
     """Every kernel's wrapper, each counting its launches."""
-    from ds2i_torch.ops import block_decode, blockmax, join, pair_decode
+    from ds2i_torch.ops import block_decode, blockmax, decode, join, pair_decode
 
     return (pair_decode.decode_pair, *block_decode.WRAPPERS.values(), blockmax.blockmax_rows,
-            join.join_part)
+            join.join_part, decode.decode_rows, pair_decode.decode_group)
 
 
 def decode_stage_phase(eng, plan, tag):
@@ -1943,9 +1964,476 @@ def front_door_phase(coll, wdata, queries, index, entries, tool_device=None):
             "optpfor_decode", "interp_decode")), blockmax.blockmax_rows, join.join_part):
         if w.launches <= 0:
             raise AssertionError(f"the front door phase never launched the CUDA {w.__name__}")
-    wrapper_of = {"pair_decode": "decode_pair", "blockmax": "blockmax_rows", "join": "join_part"}
+    wrapper_of = {"pair_decode": "decode_pair", "blockmax": "blockmax_rows", "join": "join_part",
+                  "segment_decode": "decode_rows", "tile_decode": "decode_group"}
     for e in entries:
         e["front_door_launches"] = counts[wrapper_of.get(e["name"], e["name"])]
+
+
+GEN_ORACLE_QUERIES = 300
+GEN_RANDOM_LISTS = 200
+GEN_REPLAY_CALLS = 24  # engine decode_rows calls replayed through the plain version
+GEN_REPLAY_SEED = 5
+PLANE_SEED = 13  # the sharded plane's seeded batch
+
+
+PLAIN_BITS = 1 << 27  # the most window bits (rows x W x 32) one plain piece expands
+
+
+def plain_pieces(f, st):
+    """decode_rows_torch's pieces of one decode_rows call (the call's nine
+    fields `f` and statics `st`), whose (R, W*32) bit planes over every
+    row at the call's W would not fit: its rows bucketed by the pow4
+    window words they span and cut to at most PLAIN_BITS bits a piece,
+    each piece with a W and Lseg that decode its rows as the call's do
+    (min(W, 4**b) spans every window of bucket b; min(Lseg, the pow2 of
+    the piece's n_vals) every slot it writes)."""
+    import torch
+
+    from ds2i_torch.engine.device_index import _pow_at_least
+
+    ss, sl, n = (f[k].cpu().numpy().astype(np.int64) for k in ("sel_start", "sel_len", "n_vals"))
+    words = ((ss & 31) + np.maximum(sl, 0) + 31) // 32
+    bucket = np.ceil(np.log2(np.maximum(words, 4)) / 2).astype(np.int64)
+    dev = f["kind"].device
+    pieces = []
+    for b in np.unique(bucket):
+        sel = np.flatnonzero(bucket == b)
+        W = min(st["W"], 4 ** int(b))
+        Lseg = min(st["Lseg"], _pow_at_least(max(int(n[sel].max()), 1), lo=32))
+        per = max(1, PLAIN_BITS // (W * 32 + Lseg))
+        for i in range(0, len(sel), per):
+            part = sel[i:i + per]
+            Lp = min(Lseg, _pow_at_least(max(int(n[part].max()), 1), lo=32))
+            pieces.append((torch.from_numpy(part).to(dev), W, Lp))
+    return pieces
+
+
+def plain_pieces_run(words, f, list_n, st, pieces, sentinel):
+    """decode_rows_torch over each piece with `sentinel`: the plain
+    version's work for the call."""
+    from ds2i_torch.ops.decode import FIELDS, decode_rows_torch
+
+    return [decode_rows_torch(words, *(f[k][idx] for k in FIELDS), list_n,
+                              **dict(st, W=W, Lseg=Lseg, sentinel=sentinel))
+            for idx, W, Lseg in pieces]
+
+
+def plain_decode(words, f, list_n, st, pieces):
+    """The call's output by decode_rows_torch, piece by piece: each piece
+    decoded with the call's sentinel and with another, a slot it writes
+    reads the same in both and every other slot its sentinel, so the
+    pieces' writes merge into one sentinel-filled output."""
+    import torch
+
+    s0 = st["sentinel"]
+    s1 = s0 - 1 if s0 > 0 else s0 + 1
+    out = torch.full((st["rows"], st["L_out"]), s0, dtype=torch.int32, device=words.device)
+    for a, b in zip(plain_pieces_run(words, f, list_n, st, pieces, s0),
+                    plain_pieces_run(words, f, list_n, st, pieces, s1)):
+        out = torch.where(a == b, a, out)
+    return out
+
+
+def segment_call(dindex, stream):
+    """Every segment of one stream of a DeviceIndex as one decode_rows
+    call into one flat output row (each list's values at its offset in
+    the stream's postings order, as FlatQueryEngine lays them out): the
+    call's words, fields and list_n on the index's device, its statics
+    and the host segment table."""
+    import torch
+
+    from ds2i_torch.engine.device_index import _pow_at_least
+    from ds2i_torch.ops.decode import FIELDS
+
+    segs = dindex.docs_segs if stream == "docs" else dindex.freqs_segs
+    lid = segs["list_id"]
+    list_start = np.concatenate([[0], np.cumsum(dindex.list_n)])
+    total = int(list_start[-1])
+    fields = {k: segs[k] for k in FIELDS if k not in ("out_begin", "list_row")}
+    fields["out_begin"] = list_start[lid] + segs["out_begin"]
+    fields["list_row"] = np.zeros(len(lid), dtype=np.int64)
+    words = ((segs["sel_start"] & 31) + segs["sel_len"] + 31) // 32
+    dev = dindex.device
+    t = {k: torch.from_numpy(np.ascontiguousarray(fields[k], dtype=np.int32)).to(dev)
+         for k in FIELDS}
+    statics = dict(W=_pow_at_least(int(words.max()), lo=4),
+                   Lseg=_pow_at_least(int(segs["n_vals"].max()), lo=32),
+                   rows=1, L_out=total, sentinel=dindex.num_docs if stream == "docs" else 0)
+    w = dindex.docs_words if stream == "docs" else dindex.freqs_words
+    list_n = torch.tensor([total], dtype=torch.int32, device=dev)
+    return w, t, list_n, statics, segs
+
+
+def segment_bytes(segs, statics):
+    """The bytes one call over these segments must move on this run's data,
+    each input read once and each output written once: per segment with
+    values its nine fields, the window words its bits span (EF, strict EF
+    and ranked-bitvector kinds) and the words its n_vals * l low bits span
+    (EF kinds); the output rows written in full (the sentinel fill too)
+    and their list_n."""
+    from ds2i_torch.ops.segments import SEG_EF, SEG_EF_STRICT, SEG_RB
+
+    n = np.minimum(segs["n_vals"], statics["Lseg"])
+    real = n > 0
+    kind = segs["kind"]
+    high = real & np.isin(kind, (SEG_EF, SEG_EF_STRICT, SEG_RB)) & (segs["sel_len"] > 0)
+    hw = np.where(high, ((segs["sel_start"] & 31) + segs["sel_len"] + 31) // 32, 0)
+    lbits = n * segs["lower_bits"]
+    low = real & np.isin(kind, (SEG_EF, SEG_EF_STRICT)) & (lbits > 0)
+    lw = np.where(low, ((segs["lb_start"] & 31) + lbits + 31) // 32, 0)
+    return (4 * (9 * int(real.sum()) + 2 * int((~real).sum()) + int(hw.sum()) + int(lw.sum()))
+            + 4 * statics["rows"] * (statics["L_out"] + 1))
+
+
+def engine_calls(engines, queries):
+    """The arguments of every decode_rows call one ranked_or over `queries`
+    makes in each engine (cls -> [(args, statics), ...]): the engines'
+    modules read decode_rows as a global, swapped for a recorder that
+    passes each call on for the op."""
+    from ds2i_torch.engine import executor, flat_executor
+    from ds2i_torch.ops import decode
+
+    real = decode.decode_rows
+    calls = {}
+    for cls, eng in engines.items():
+        rec = calls[cls] = []
+
+        def record(*args, **st):
+            rec.append((args, st))
+            return real(*args, **st)
+
+        executor.decode_rows = flat_executor.decode_rows = record
+        try:
+            eng.ranked_or(queries, k=10)
+        finally:
+            executor.decode_rows = flat_executor.decode_rows = real
+    return calls
+
+
+def engine_call_phase(engines, queries, tag):
+    """K9 against decode_rows_torch bit for bit on the calls the engines
+    make: a seeded sample of GEN_REPLAY_CALLS of each engine's decode_rows
+    calls over one ranked_or (QueryEngine's chunks of B*T+1 rows with pad
+    rows and list_n, FlatQueryEngine's window buckets with sentinel -1),
+    each call launched again and decoded by the plain version."""
+    import torch
+
+    from ds2i_torch.ops.decode import FIELDS, decode_rows
+
+    rng = np.random.RandomState(GEN_REPLAY_SEED)
+    for cls, calls in engine_calls(engines, queries).items():
+        if not calls:
+            raise AssertionError(f"{tag} {cls}: ranked_or made no decode_rows call")
+        pick = np.sort(rng.choice(len(calls), size=min(GEN_REPLAY_CALLS, len(calls)),
+                                  replace=False))
+        shapes = set()
+        for i in pick:
+            args, st = calls[i]
+            words, list_n = args[0], args[-1]
+            f = dict(zip(FIELDS, args[1:-1]))
+            got = decode_rows(*args, **st)
+            exp = plain_decode(words, f, list_n, st, plain_pieces(f, st))
+            if not torch.equal(got, exp):
+                raise AssertionError(f"{tag} {cls}: segment_decode differs from decode_rows_torch "
+                                     f"on call {i} ({st}): {int((got != exp).sum())} values")
+            shapes.add((len(args[1]), st["W"], st["Lseg"], st["rows"], st["L_out"]))
+        span = ", ".join(f"{k} {min(v)}-{max(v)}" for k, v in
+                         zip(("R", "W", "Lseg", "rows", "L_out"), zip(*shapes)))
+        log(f"{tag} {cls}: K9 segment_decode == decode_rows_torch bit for bit on {len(pick)} of "
+            f"the {len(calls)} decode_rows calls of one ranked_or over {len(queries)} queries "
+            f"(seeded sample; {span})")
+
+
+def segment_kernel_phase(dindexes, engines, queries):
+    """K9 (decode_rows, csrc/segment_decode.cu) over every docs segment and
+    every freqs segment of each index, one launch each, against
+    decode_rows_torch on the card bit for bit (plain_decode's pieces);
+    on a sample of the calls QueryEngine and FlatQueryEngine make over one
+    ranked_or (engine_call_phase: the whole log on `opt`, the oracle's
+    queries on `ef`); 200 random lists of each index through DeviceIndex
+    against the host decoder; the `opt` docs call timed through the
+    wrapper, alone and plain, beside its bound by bytes. Returns K9's JSON
+    entry (launches filled later)."""
+    import torch
+
+    from ds2i_torch.engine.device_index import _pow_at_least
+    from ds2i_torch.ops.decode import FIELDS, decode_rows
+
+    entry = None
+    for name, dindex in dindexes.items():
+        for stream in ("docs", "freqs"):
+            w, f, list_n, st, segs = segment_call(dindex, stream)
+            args = (w, *(f[k] for k in FIELDS), list_n)
+            got = decode_rows(*args, **st)
+            pieces = plain_pieces(f, st)
+            exp = plain_decode(w, f, list_n, st, pieces)
+            if not torch.equal(got, exp):
+                raise AssertionError(f"segment_decode differs from decode_rows_torch on {name} "
+                                     f"{stream}: {int((got != exp).sum())} values")
+            log(f"generations: K9 segment_decode == decode_rows_torch bit for bit on every {stream} "
+                f"segment of {name} ({len(segs['kind'])} segments, {st['L_out']} values, one "
+                f"launch; the plain version in {len(pieces)} pieces; W {st['W']}, Lseg "
+                f"{st['Lseg']})")
+            if name == "opt" and stream == "docs":
+                ms = cuda_ms(lambda: decode_rows(*args, **st))
+                dev_ms = device_only_ms(lambda: decode_rows(*args, **st))
+                plain_ms = cuda_ms(lambda: plain_pieces_run(w, f, list_n, st, pieces,
+                                                            st["sentinel"]))
+                nbytes = segment_bytes(segs, st)
+                bound_ms, bound_by = bound(nbytes)
+                log(f"generations: K9 over every opt docs segment: {ms:.4f} ms through the "
+                    f"wrapper, {fmt_ms(dev_ms)} alone, plain PyTorch {plain_ms:.4f} ms (its "
+                    f"{len(pieces)} piece calls; median of 5); bound {bound_ms:.4f} ms by "
+                    f"{bound_by} ({nbytes} bytes)")
+                entry = {"name": "segment_decode", "route": "cuda",
+                         "source": "ds2i_torch/csrc/segment_decode.cu",
+                         "replaces": "ds2i_tpu/ops/decode.py:33", "launches": None,
+                         "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": None}  # no single PyTorch call decodes Elias-Fano
+        engine_call_phase(engines[name], queries if name == "opt" else
+                          queries[:GEN_ORACLE_QUERIES], f"generations {name}")
+        # random lists against the host decoder
+        index = dindex.index
+        rng = np.random.RandomState(0)
+        nonempty = np.flatnonzero(dindex.list_n > 0)
+        lists = rng.choice(nonempty, size=min(GEN_RANDOM_LISTS, len(nonempty)), replace=False)
+        L = _pow_at_least(dindex.max_list_len(lists), lo=32)
+        docs = dindex.decode_docs(lists, L).cpu().numpy()
+        cums = dindex.decode_freq_cums(lists, L).cpu().numpy()
+        for row, li in enumerate(lists):
+            hd, hf = index.decode_list(int(li))
+            n = len(hd)
+            if not (np.array_equal(docs[row, :n], hd) and np.all(docs[row, n:] == dindex.num_docs)
+                    and np.array_equal(np.diff(cums[row, :n], prepend=0), hf)):
+                raise AssertionError(f"{name} list {li}: DeviceIndex on the card differs from "
+                                     f"index.decode_list")
+        log(f"generations: {len(lists)} random {name} lists through DeviceIndex on the card equal "
+            f"index.decode_list (docids, freqs from the cums)")
+    return entry
+
+
+def tile_group_bytes(gfields, groups):
+    """The bytes K6g's launches over these groups must move on this run's
+    data, both streams: per real row and stream the 10 field words it
+    reads (all but F_PREV_CUM), the window words its F_WIN_LEN bits span
+    (EF, strict EF and ranked-bitvector kinds), the words its n_vals * l
+    low bits span (EF kinds) and its n_vals output slots; a pad row's kind
+    and n_vals. The contract leaves a row's slots past n_vals undefined,
+    so they, and a pad row's output, are not counted."""
+    from ds2i_torch.engine.tiles import (
+        F_KIND, F_LB_BITOFF, F_LOWER_BITS, F_NVALS, F_WIN_BITOFF, F_WIN_LEN, N_FIELDS, TILE,
+    )
+    from ds2i_torch.ops.segments import SEG_EF, SEG_EF_STRICT, SEG_RB
+
+    nbytes = 0
+    for off, R, _, _ in groups:
+        for s in (0, N_FIELDS):
+            f = gfields[off:off + R, s:s + N_FIELDS].astype(np.int64)
+            n = f[:, F_NVALS]
+            real = n > 0
+            high = real & np.isin(f[:, F_KIND], (SEG_EF, SEG_EF_STRICT, SEG_RB)) & (f[:, F_WIN_LEN] > 0)
+            hw = np.where(high, (f[:, F_WIN_BITOFF] + f[:, F_WIN_LEN] + 31) // 32, 0)
+            lbits = n * f[:, F_LOWER_BITS]
+            low = real & np.isin(f[:, F_KIND], (SEG_EF, SEG_EF_STRICT)) & (lbits > 0)
+            lw = np.where(low, (f[:, F_LB_BITOFF] + lbits + 31) // 32, 0)
+            nbytes += 4 * (10 * int(real.sum()) + 2 * int((~real).sum()) + int(hw.sum())
+                           + int(lw.sum()) + int(np.minimum(n[real], TILE).sum()))
+    return nbytes
+
+
+def tile_kernel_phase(eng):
+    """K6g (decode_group, csrc/tile_decode.cu) on every group of the tile
+    engine's layout over every list of its index (each list a one-term
+    query), both streams, against _decode_stream on the card on the slots
+    j < n_vals; all groups' launches timed through the wrapper, alone and
+    plain, beside their bound by bytes. Returns K6g's JSON entry."""
+    import torch
+
+    from ds2i_torch.engine.tiles import F_NVALS, N_FIELDS, TILE
+    from ds2i_torch.ops.pair_decode import _decode_stream, decode_group
+
+    d = eng.dindex
+    nl = d.num_lists
+    groups, gfields = eng._build_batch(np.arange(nl), np.ones(nl, np.float32),
+                                       np.ones(nl, np.int64))[:2]
+    g_dev = torch.from_numpy(gfields).to(eng.device)
+    calls = [(words, g_dev[off:off + R, s:s + N_FIELDS].contiguous(), W, WL)
+             for off, R, W, WL in groups
+             for s, words in ((0, d.docs_words), (N_FIELDS, d.freqs_words))]
+    slots = 0
+    for words, fld, W, WL in calls:
+        got = decode_group(words, fld, W, WL)
+        exp = _decode_stream(words, fld, W, WL, TILE).to(torch.int32)
+        valid = torch.arange(TILE, device=eng.device)[None, :] < fld[:, F_NVALS, None]
+        slots += int(valid.sum())
+        if not torch.equal(got[valid], exp[valid]):
+            raise AssertionError(f"tile_decode differs from _decode_stream on group (W {W}, WL "
+                                 f"{WL}): {int((got[valid] != exp[valid]).sum())} slots")
+    log(f"generations: K6g tile_decode == _decode_stream on every group of the opt tile layout "
+        f"({len(groups)} groups x 2 streams, {len(gfields)} rows, {slots} valid slots) "
+        f"[(W, WL) x rows: {', '.join(f'({W}, {WL})x{R}' for _, R, W, WL in groups)}]")
+
+    def run():
+        for c in calls:
+            decode_group(*c)
+
+    def plain():
+        for words, fld, W, WL in calls:
+            _decode_stream(words, fld, W, WL, TILE)
+
+    ms = cuda_ms(run)
+    dev_ms = device_only_ms(run)
+    plain_ms = cuda_ms(plain)
+    nbytes = tile_group_bytes(gfields, groups)
+    bound_ms, bound_by = bound(nbytes)
+    log(f"generations: K6g over every opt tile, {len(calls)} launches: {ms:.4f} ms through the "
+        f"wrapper, {fmt_ms(dev_ms)} alone, plain PyTorch {plain_ms:.4f} ms (median of 5); bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({nbytes} bytes)")
+    return {"name": "tile_decode", "route": "cuda", "source": "ds2i_torch/csrc/tile_decode.cu",
+            "replaces": "ds2i_tpu/engine/tile_executor.py:61", "launches": None,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None}  # no single PyTorch call decodes Elias-Fano
+
+
+def generation_runs(engines, queries, exact, tag):
+    """Each engine's and_counts, or_counts, ranked_and and ranked_or over
+    `queries` against `exact` (the exhaustive ResidentEngine's): counts
+    exact, top-10 within rtol RTOL query by query; seconds and µs/query of
+    each op."""
+    from ds2i_torch.ops import decode, pair_decode
+
+    for cls, eng in engines.items():
+        n9, n6 = decode.decode_rows.launches, pair_decode.decode_group.launches
+        secs = {}
+        got = {}
+        for op in ("and_counts", "or_counts", "ranked_and", "ranked_or"):
+            t = time.perf_counter()
+            got[op] = getattr(eng, op)(queries) if op.endswith("counts") else \
+                getattr(eng, op)(queries, k=10)
+            secs[op] = time.perf_counter() - t
+        for op in ("and_counts", "or_counts"):
+            if not np.array_equal(np.asarray(got[op]), np.asarray(exact[op])):
+                bad = np.flatnonzero(np.asarray(got[op]) != np.asarray(exact[op]))
+                raise AssertionError(f"{tag} {cls}: {op} differs from the exhaustive "
+                                     f"ResidentEngine's on queries {bad[:10].tolist()}")
+        for op in ("ranked_and", "ranked_or"):
+            bad = topk_mismatches(got[op], exact[op])
+            if bad:
+                raise AssertionError(f"{tag} {cls}: {op} differs from the exhaustive "
+                                     f"ResidentEngine's on queries {bad[:10]}")
+        log(f"{tag} {cls}: and_counts and or_counts exact, ranked_and and ranked_or top-10 within "
+            f"rtol {RTOL} of the exhaustive ResidentEngine on all {len(queries)} queries; seconds "
+            f"{ {op: round(s, 3) for op, s in secs.items()} }, us/query "
+            f"{ {op: round(s / len(queries) * 1e6, 3) for op, s in secs.items()} }; launches "
+            f"K9 {decode.decode_rows.launches - n9}, K6g "
+            f"{pair_decode.decode_group.launches - n6}")
+
+
+def plane_batch(num_docs, B=16, T=4, L=512):
+    """A seeded (docs, freqs, qw, norm_lens) batch for the sharded plane:
+    sorted docids from pools that overlap (so AND matches exist), pads
+    num_docs, a third of the term slots empty (qw 0)."""
+    rng = np.random.RandomState(PLANE_SEED)
+    docs = np.full((B, T, L), num_docs, dtype=np.int32)
+    freqs = np.zeros((B, T, L), dtype=np.int32)
+    qw = rng.uniform(0.5, 3.0, size=(B, T)).astype(np.float32)
+    qw[rng.rand(B, T) < 0.3] = 0.0
+    for b in range(B):
+        for t in range(T):
+            n = rng.randint(L // 4, L + 1)
+            docs[b, t, :n] = np.sort(rng.choice(min(num_docs, 2 * L + 97 * t), n, replace=False))
+            freqs[b, t, :n] = rng.randint(1, 20, n)
+    return docs, freqs, qw, rng.uniform(0.3, 2.5, num_docs).astype(np.float32)
+
+
+def plane_phase(num_docs):
+    """make_sharded_plane_step on a (1, 1) mesh of cuda:0 and a (2, 2) grid
+    of cuda:0 against the port's own run on a CPU mesh, on one seeded
+    batch: counts exact, top-10 within rtol RTOL (scatter-add order)."""
+    import torch
+
+    from ds2i_torch.parallel.sharded_engine import make_mesh, make_sharded_plane_step
+
+    batch = plane_batch(num_docs)
+    cpu = [x.numpy() for x in make_sharded_plane_step(
+        make_mesh([torch.device("cpu")] * 4, dp=2, tp=2), num_docs, 10)(*batch)]
+    if not (cpu[0] > 0).any():
+        raise AssertionError("the plane's seeded batch has no AND match")
+    for shape in ((1, 1), (2, 2)):
+        t = time.perf_counter()
+        mesh = make_mesh([torch.device("cuda", 0)] * (shape[0] * shape[1]), *shape)
+        got = [x.cpu().numpy() for x in make_sharded_plane_step(mesh, num_docs, 10)(*batch)]
+        for g, c, what in zip(got, cpu, ("and_counts", "or_counts", "topk_or", "topk_and")):
+            fin = np.isfinite(c)
+            if what.endswith("counts"):
+                ok = np.array_equal(g, c)
+            else:
+                ok = np.array_equal(np.isfinite(g), fin) and np.allclose(g[fin], c[fin], rtol=RTOL,
+                                                                         atol=0)
+            if not ok:
+                raise AssertionError(f"sharded plane {shape}: {what} differs from the CPU mesh's")
+        log(f"generations: sharded plane on a {shape} mesh of cuda:0 equals the CPU mesh's "
+            f"(batch {batch[0].shape}, num_docs {num_docs}: counts exact, top-10 within rtol "
+            f"{RTOL}; {time.perf_counter() - t:.2f} s)")
+
+
+def generations_phase(coll, wdata, queries, opt_index, exact):
+    """The JAX package's three earlier engine generations, DeviceIndex and
+    the mesh plane, ported (every count set to 0 just before it): K9 and
+    K6g against their plain versions (segment_kernel_phase, with a sample
+    of the calls QueryEngine and FlatQueryEngine make; tile_kernel_phase);
+    then the path, its counts set to 0 again just
+    before it: QueryEngine, FlatQueryEngine and TileQueryEngine over one
+    DeviceIndex of the 1x `opt` index on the card, the whole log, against
+    `exact` (the exhaustive ResidentEngine's and_counts, or_counts,
+    ranked_and and ranked_or); the same engines over the 1x `ef` index on
+    300 queries against the oracle; then the sharded plane. Returns the
+    JSON entries of K9 and K6g, their launches those of the engines'
+    runs."""
+    import torch
+
+    from ds2i_torch.engine import DeviceIndex, FlatQueryEngine, QueryEngine, TileQueryEngine
+    from ds2i_torch.ops import decode, pair_decode
+
+    for w in kernel_wrappers():
+        w.launches = 0
+    t_phase = time.perf_counter()
+    ef_index = build_index(coll, "ef")
+    t0 = time.perf_counter()
+    dindexes = {"opt": DeviceIndex(opt_index), "ef": DeviceIndex(ef_index)}
+    tile = TileQueryEngine(dindexes["opt"], wdata)
+    torch.cuda.synchronize()
+    log(f"generations: DeviceIndex of opt and ef, the opt tile tables "
+        f"({time.perf_counter() - t0:.1f} s)")
+    segment_engines = {name: {"QueryEngine": QueryEngine(d, wdata),
+                              "FlatQueryEngine": FlatQueryEngine(d, wdata)}
+                       for name, d in dindexes.items()}
+    seg_entry = segment_kernel_phase(dindexes, segment_engines, queries)
+    tile_entry = tile_kernel_phase(tile)
+    log(f"generations: launches of the kernel checks: "
+        f"{ {w.__name__: w.launches for w in kernel_wrappers() if w.launches} }")
+
+    for w in kernel_wrappers():
+        w.launches = 0
+    t0 = time.perf_counter()
+    engines = dict(segment_engines["opt"], TileQueryEngine=tile)
+    generation_runs(engines, queries, exact, "generations opt")
+    for cls, make in (("QueryEngine", QueryEngine), ("FlatQueryEngine", FlatQueryEngine),
+                      ("TileQueryEngine", TileQueryEngine)):
+        oracle_phase(make(dindexes["ef"], wdata), ef_index, wdata, queries, GEN_ORACLE_QUERIES,
+                     f"generations ef {cls}")
+    counts = {w.__name__: w.launches for w in kernel_wrappers()}
+    log(f"generations: the engines' runs {time.perf_counter() - t0:.1f} s; launches {counts}")
+    for entry, w in ((seg_entry, decode.decode_rows), (tile_entry, pair_decode.decode_group)):
+        if w.launches <= 0:
+            raise AssertionError(f"the generations path never launched the CUDA {w.__name__}")
+        entry["launches"] = w.launches
+    plane_phase(opt_index.num_docs())
+    log(f"generations phase: {time.perf_counter() - t_phase:.1f} s")
+    return [seg_entry, tile_entry]
 
 
 WSDM_FRACTION = 0.05  # of the lists profile_decoding samples
@@ -2086,7 +2574,15 @@ def main():
     pair_part_phase(eng, plan)
     oracle_phase(eng, index, wdata, queries, ORACLE_QUERIES, "opt")
     opt_prune_phase(eng, queries)
+    exact = {op: getattr(eng, op)(queries) for op in ("and_counts", "or_counts")}
+    exact.update({op: getattr(eng, op)(queries, k=10) for op in ("ranked_and", "ranked_or")})
     del eng
+    torch.cuda.empty_cache()
+
+    # the earlier engine generations over DeviceIndex, K9 and K6g, the mesh plane
+    gen_entries = generations_phase(coll, wdata, queries, index, exact)
+    del exact
+    torch.cuda.empty_cache()
 
     # block_optpfor path: split mode, then and_skip, bench.py's default path
     block_entries = []
@@ -2137,7 +2633,7 @@ def main():
              "interp_decode")
     if sorted(by_name) != sorted(order):
         raise AssertionError(f"block kernels timed: {sorted(by_name)}, expected {sorted(order)}")
-    entries = [pair_entry, *(by_name[n] for n in order), bm_entry, join_entry]
+    entries = [pair_entry, *(by_name[n] for n in order), bm_entry, join_entry, *gen_entries]
 
     # the WSDM'15 tool chain, its long pole (optimal_hybrid_index) beside
     # the front door: the tools, a doc-sharded engine, make_engine,

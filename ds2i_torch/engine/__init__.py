@@ -1,15 +1,23 @@
 """The port's serving engine (EF-family indexes in pair mode, the block
 indexes block_optpfor, block_varint, block_interpolative, block_qmx and
 block_mixed in split mode), and make_engine, which shards an index by
-doc range once it outgrows one engine."""
+doc range once it outgrows one engine; beside them the JAX package's
+three earlier engine generations over a DeviceIndex (EF-family indexes):
+QueryEngine (score planes), FlatQueryEngine (one sorted postings stream)
+and TileQueryEngine (scatter-free tiles)."""
 
 import torch
 
 from ..device import resolve_device
+from .device_index import DeviceIndex
+from .executor import QueryEngine
+from .flat_executor import FlatQueryEngine
 from .resident import ResidentEngine
 from .state import ResidentState, resident_state_from_arrays
+from .tile_executor import TileQueryEngine
 
-__all__ = ["RESIDENT_STREAM_LIMIT", "ResidentEngine", "ResidentState", "make_engine",
+__all__ = ["RESIDENT_STREAM_LIMIT", "DeviceIndex", "FlatQueryEngine", "QueryEngine",
+           "ResidentEngine", "ResidentState", "TileQueryEngine", "make_engine",
            "resident_state_from_arrays", "resident_stream_limit"]
 
 # The JAX engine's split point: its tile cursors are (i32 word, bit in

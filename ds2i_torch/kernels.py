@@ -62,6 +62,19 @@ _JOIN_ARGS = [
     _p, _p, _p,  # out (n_rows, width) f16 or f32, scratch top-k lists f32, scratch counts int32
     _p,  # cudaStream_t
 ]
+_SEGMENT_ARGS = [
+    _p, _ll, _i,  # words, word count, R
+    *[_p] * 9,  # kind, sel_start, sel_len, lb_start, lower_bits, n_vals, base, out_begin, list_row
+    _p, _i, _i, _i, _i,  # list_n int32 (rows,), W, Lseg, rows, L_out
+    _p,  # out int32 (rows, L_out), filled with the sentinel
+    _p,  # cudaStream_t
+]
+_TILE_GROUP_ARGS = [
+    _p, _ll, _p, _i,  # words, word count, field rows int32 (R, N_FIELDS), R
+    _i, _i, _i,  # W, WL, T
+    _p,  # out int32 (R, T)
+    _p,  # cudaStream_t
+]
 # entry point and argtypes of each kernel library (csrc/<name>.cu)
 ENTRY_POINTS = {
     "pair_decode": ("ds2i_pair_decode_part", _PAIR_ARGS),
@@ -72,6 +85,8 @@ ENTRY_POINTS = {
     "interp_decode": ("ds2i_interp_decode_part", _PART_ARGS),
     "blockmax": ("ds2i_blockmax_rows", _BLOCKMAX_ARGS),
     "join": ("ds2i_join_part", _JOIN_ARGS),
+    "segment_decode": ("ds2i_segment_decode", _SEGMENT_ARGS),
+    "tile_decode": ("ds2i_tile_decode_group", _TILE_GROUP_ARGS),
 }
 
 _LIBS = {}

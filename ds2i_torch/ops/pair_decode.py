@@ -19,6 +19,11 @@ tests and chip_smoke.py, never by the CUDA path. The wrapper
 `pair_decode_part` take those plain versions for CPU tensors only; on
 CUDA tensors they launch the kernel or raise.
 
+`decode_group` is the one-stream decode of one tile group that the JAX
+package's TileQueryEngine runs (tile_executor._decode_group): its plain
+version is `_decode_stream`, its kernel csrc/tile_decode.cu (K6g), a
+source and library of its own beside pair_decode.cu.
+
 Words are int32 tensors holding the uint32 words' bits. The plain
 version widens them to int64 masked with 0xFFFFFFFF, so every shift and
 mask is the unsigned 32-bit one of the TPU kernel.
@@ -112,6 +117,42 @@ def _decode_stream(words, fld, W, WL, T):
     val = torch.where(kind == SEG_RB, sel + adj, val)
     val = torch.where(kind == SEG_AO, j, val)
     return val + col(F_BASE)
+
+
+def decode_group(words, fields, W, WL, T=128):
+    """One stream of one (W, WL, T) tile group, the JAX package's
+    tile_executor._decode_group: field rows (R, N_FIELDS) int32 -> (R, T)
+    int32 values; slots j >= n_vals are undefined (the caller masks
+    them). CPU tensors take the plain version _decode_stream; CUDA tensors
+    make one launch of csrc/tile_decode.cu (K6g, counted in
+    decode_group.launches; it writes 0 there) or raise."""
+    if words.device.type == "cpu":
+        return _decode_stream(words, fields, W, WL, T).to(torch.int32)
+    if words.device.type != "cuda":
+        raise ValueError(f"decode_group runs on cuda or cpu, not {words.device}")
+    if words.dtype != torch.int32 or words.dim() != 1 or words.numel() == 0:
+        raise ValueError("words must be a non-empty 1-D int32 tensor (the uint32 words' bits)")
+    if (fields.dtype != torch.int32 or fields.dim() != 2 or fields.shape[1] != N_FIELDS
+            or fields.device != words.device):
+        raise ValueError(f"fields must be int32 (R, {N_FIELDS}) on {words.device}, got "
+                         f"{fields.dtype} {tuple(fields.shape)} on {fields.device}")
+    if W < 1 or WL < 0 or not 1 <= T <= 128:
+        raise ValueError(f"decode_group takes W >= 1, WL >= 0 and 1 <= T <= 128, got {W}, {WL}, "
+                         f"{T}")
+    R = fields.shape[0]
+    out = torch.empty((R, T), dtype=torch.int32, device=words.device)
+    if R == 0:
+        return out
+    lib = kernels.lib("tile_decode")
+    rc = lib.ds2i_tile_decode_group(
+        words.data_ptr(), words.numel(), fields.contiguous().data_ptr(), R, int(W), int(WL),
+        int(T), out.data_ptr(), torch.cuda.current_stream(words.device).cuda_stream)
+    kernels.check(lib, rc, "tile_decode launch")
+    decode_group.launches += 1
+    return out
+
+
+decode_group.launches = 0
 
 
 def decode_pair_torch(docs_words, freqs_words, dfld, ffld, W, WL, T, num_docs):

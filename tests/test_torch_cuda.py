@@ -4,10 +4,13 @@ in the pass (K1s), Varint-G8IU, QMX and interpolative block decode,
 launch by launch and as a whole part, and K7, K8 and K1s on seeded edge
 rows; the
 block-max pass in both forms; the join and pack, K3, on every part of
-every plan) against its plain
+every plan; the segment decode K9 on every segment and on seeded edge
+rows, the one-stream tile decode K6g on every group) against its plain
 PyTorch version, and ResidentEngine on CUDA against the same
 engine on the CPU, exhaustive and pruned, over every index type and
-past a lowered resident word limit.
+past a lowered resident word limit; likewise the earlier engine
+generations (QueryEngine, FlatQueryEngine, TileQueryEngine), DeviceIndex
+and the sharded plane on a (1, 1) and a (2, 2) grid of the card.
 
 Every test here is marked `cuda` and skips where torch.cuda.is_available()
 is False. The card's machine has no jax, so run them there without the
@@ -40,6 +43,13 @@ from torch_block_rows import (
     block_part, qmx_rows, s16_more_rows, s16_rows, varint_rows,
 )
 from torch_join_rows import KINDS, bucket_layout, bucket_of, special_rows
+from torch_segment_rows import segment_rows
+from ds2i_torch.engine import DeviceIndex, FlatQueryEngine, QueryEngine, TileQueryEngine
+from ds2i_torch.engine.tiles import F_NVALS, N_FIELDS
+from ds2i_torch.ops.decode import FIELDS as SEGMENT_FIELDS
+from ds2i_torch.ops.decode import decode_rows, decode_rows_torch
+from ds2i_torch.ops.pair_decode import _decode_stream, decode_group
+from ds2i_torch.parallel.sharded_engine import make_mesh, make_sharded_plane_step
 
 pytestmark = pytest.mark.cuda
 
@@ -834,3 +844,151 @@ def test_engine_cache_round_trip_on_cuda(cuda, coll, name, tmp_path):
         np.testing.assert_array_equal(getattr(second, field), getattr(first, field),
                                       err_msg=field)
     _same_bits(second.state.den_blocks, first.state.den_blocks)
+
+
+# -- the earlier engine generations: K9, K6g, DeviceIndex, the mesh plane ----
+
+GEN_ENGINES = {"QueryEngine": QueryEngine, "FlatQueryEngine": FlatQueryEngine,
+               "TileQueryEngine": TileQueryEngine}
+
+
+@pytest.mark.parametrize("name", ["ef", "opt"])
+def test_segment_kernel_matches_plain_on_every_segment(cuda, coll, name):
+    """K9 over every segment of each stream in one launch (the flat layout
+    of chip_smoke.segment_call) against decode_rows_torch on the card, bit
+    for bit, one counted launch a call; DeviceIndex on the card equal to
+    DeviceIndex on the CPU on every list."""
+    index = build(coll, name)
+    dindex = DeviceIndex(index, device=cuda)
+    for stream in ("docs", "freqs"):
+        w, f, list_n, st = chip_smoke.segment_call(dindex, stream)[:4]
+        args = (w, *(f[k] for k in SEGMENT_FIELDS), list_n)
+        before = decode_rows.launches
+        got = decode_rows(*args, **st)
+        torch.cuda.synchronize()
+        assert decode_rows.launches == before + 1
+        _same_bits(got, decode_rows_torch(*args, **st))
+    cpu = DeviceIndex(index, device="cpu")
+    ids = np.arange(cpu.num_lists)
+    L = 1 << int(np.ceil(np.log2(max(2, cpu.max_list_len(ids)))))
+    for fn in ("decode_docs", "decode_freq_cums"):
+        _same_bits(getattr(dindex, fn)(ids, L).cpu(), getattr(cpu, fn)(ids, L))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_segment_kernel_on_seeded_rows(cuda, seed):
+    """K9 on tests/torch_segment_rows.py's edge rows (long segments, ones
+    past Lseg and past W, l 0/31/32, every kind, masked, negative and
+    off-grid rows, a window past the stream's end, pad rows) against
+    decode_rows_torch on the card."""
+    words, fields, list_n, st = segment_rows(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    args = (t(words.view(np.int32)), *(t(fields[k]) for k in SEGMENT_FIELDS), t(list_n))
+    got = decode_rows(*args, **st)
+    exp = decode_rows_torch(*args, **st)
+    torch.cuda.synchronize()
+    assert int((exp != st["sentinel"]).sum()) > 10_000
+    _same_bits(got, exp)
+
+
+@pytest.mark.parametrize("name", EF_TYPES)
+def test_tile_decode_kernel_matches_plain_on_every_group(cuda, coll, name):
+    """K6g on every group of the tile engine's layout over every list, both
+    streams, against _decode_stream on the card on the slots j < n_vals;
+    one counted launch a call."""
+    eng = TileQueryEngine(build(coll, name), device=cuda)
+    d = eng.dindex
+    nl = d.num_lists
+    groups, gfields = eng._build_batch(np.arange(nl), np.ones(nl, np.float32),
+                                       np.ones(nl, np.int64))[:2]
+    g = torch.from_numpy(gfields).to(cuda)
+    for off, R, W, WL in groups:
+        for s, words in ((0, d.docs_words), (N_FIELDS, d.freqs_words)):
+            fld = g[off:off + R, s:s + N_FIELDS].contiguous()
+            before = decode_group.launches
+            got = decode_group(words, fld, W, WL)
+            exp = _decode_stream(words, fld, W, WL, 128).to(torch.int32)
+            torch.cuda.synchronize()
+            assert decode_group.launches == before + 1
+            valid = torch.arange(128, device=cuda)[None, :] < fld[:, F_NVALS, None]
+            assert bool(valid.any())
+            _same_bits(got[valid], exp[valid])
+
+
+@pytest.mark.parametrize("cls", list(GEN_ENGINES))
+@pytest.mark.parametrize("name", ["ef", "opt"])
+def test_generations_engine_on_cuda_equals_engine_on_cpu(cuda, coll, name, cls):
+    """Each earlier engine on the card against its run on the CPU: counts
+    equal; TileQueryEngine's top-10 equal (stable sorts, shifted adds in a
+    fixed order); QueryEngine's and FlatQueryEngine's within rtol 1e-3
+    (the card's scatter-add and prefix sums add in another order)."""
+    index = build(coll, name)
+    c = BinaryFreqCollection(coll)
+    wdata = WandData.build(read_sizes(coll), c)
+    queries = read_queries(coll + ".queries")
+    gpu = GEN_ENGINES[cls](index, wdata, device=cuda)
+    cpu = GEN_ENGINES[cls](index, wdata, device="cpu")
+    np.testing.assert_array_equal(gpu.and_counts(queries), cpu.and_counts(queries))
+    np.testing.assert_array_equal(gpu.or_counts(queries), cpu.or_counts(queries))
+    for op in ("ranked_and", "ranked_or"):
+        got, exp = getattr(gpu, op)(queries, k=10), getattr(cpu, op)(queries, k=10)
+        if cls == "TileQueryEngine":
+            assert got == exp
+        else:
+            assert not chip_smoke.topk_mismatches(got, exp)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2)])
+def test_generations_sharded_plane_on_cuda_equals_cpu_mesh(cuda, shape):
+    num_docs = 3000
+    batch = chip_smoke.plane_batch(num_docs)
+    mesh = make_mesh([cuda] * (shape[0] * shape[1]), *shape)
+    got = [x.cpu().numpy() for x in make_sharded_plane_step(mesh, num_docs, 10)(*batch)]
+    exp = [x.numpy() for x in make_sharded_plane_step(
+        make_mesh([torch.device("cpu")] * 4, dp=2, tp=2), num_docs, 10)(*batch)]
+    np.testing.assert_array_equal(got[0], exp[0])
+    np.testing.assert_array_equal(got[1], exp[1])
+    assert (exp[0] > 0).any()
+    for g, e in zip(got[2:], exp[2:]):
+        np.testing.assert_array_equal(np.isfinite(g), np.isfinite(e))
+        np.testing.assert_allclose(g[np.isfinite(g)], e[np.isfinite(e)], rtol=1e-3)
+
+
+def test_generations_wrappers_raise_when_a_launch_fails(cuda, coll, monkeypatch):
+    """decode_rows and decode_group on CUDA tensors: ValueError on what the
+    kernels do not take; RuntimeError, and no count, when the kernel's
+    entry point reports a CUDA error."""
+    from ds2i_torch import kernels
+
+    words, fields, list_n, st = segment_rows(0)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    args = [t(words.view(np.int32)), *(t(fields[k]) for k in SEGMENT_FIELDS), t(list_n)]
+    with pytest.raises(ValueError, match="int32"):
+        decode_rows(args[0].long(), *args[1:], **st)
+    with pytest.raises(ValueError, match="list_n"):
+        decode_rows(*args[:-1], args[-1][:-1], **st)
+    with pytest.raises(ValueError, match="positive"):
+        decode_rows(*args, **dict(st, W=0))
+    eng = TileQueryEngine(build(coll, "opt"), device=cuda)
+    fld = torch.from_numpy(eng.tiles.docs[:64]).to(cuda)
+    with pytest.raises(ValueError, match="fields must be int32"):
+        decode_group(eng.dindex.docs_words, fld.long(), 4, 4)
+    with pytest.raises(ValueError, match="T <= 128"):
+        decode_group(eng.dindex.docs_words, fld, 4, 4, T=256)
+
+    class Failing:
+        def ds2i_segment_decode(self, *a):
+            return 1  # cudaErrorInvalidValue
+
+        ds2i_tile_decode_group = ds2i_segment_decode
+
+        def ds2i_cuda_error_string(self, rc):
+            return b"invalid argument"
+
+    monkeypatch.setattr(kernels, "lib", lambda name: Failing())
+    n9, n6 = decode_rows.launches, decode_group.launches
+    with pytest.raises(RuntimeError, match="segment_decode launch: CUDA error 1"):
+        decode_rows(*args, **st)
+    with pytest.raises(RuntimeError, match="tile_decode launch: CUDA error 1"):
+        decode_group(eng.dindex.docs_words, fld, 4, 4)
+    assert (decode_rows.launches, decode_group.launches) == (n9, n6)

@@ -1,7 +1,8 @@
 """ds2i_torch runs where neither jax nor the JAX package is present: in a
 fresh interpreter whose import system refuses every jax and ds2i_tpu
 module, import the port, serve a CPU ranked_and over an `opt` index
-(pair mode), a `block_optpfor` index and a `block_mixed` index made from
+(pair mode, and through the earlier TileQueryEngine), a `block_optpfor`
+index and a `block_mixed` index made from
 it by the port's rebuild_mixed (split mode) against the numpy oracle
 (and, over the block indexes, the pruned ranked_and too; every pass
 joins through ds2i_torch.ops.join), save and load the block_optpfor
@@ -65,7 +66,7 @@ _SCRIPT = textwrap.dedent("""
     import ds2i_torch.tools.profile_decoding
     import ds2i_torch.tools.dec_time_regression
     import ds2i_torch.tools.optimal_hybrid_index
-    from ds2i_torch.engine import ResidentEngine, make_engine
+    from ds2i_torch.engine import ResidentEngine, TileQueryEngine, make_engine
     from ds2i_torch.parallel import DocShardedEngine
     from ds2i_torch.queries import QUERY_OPS
     from ds2i_torch.tools.common import load_index, save_index
@@ -99,6 +100,8 @@ _SCRIPT = textwrap.dedent("""
         eng = ResidentEngine(index, wdata, device="cpu")
         assert eng.split == (name != "opt")
         got = eng.ranked_and(queries, k=10)
+        if name == "opt":  # the scatter-free tile engine of the earlier generations
+            tiled = TileQueryEngine(index, wdata, device="cpu").ranked_and(queries, k=10)
         if name != "opt":
             pruned = eng.ranked_and(queries, k=10, prune=True)
             assert eng.wmax_blk is not None
@@ -111,6 +114,10 @@ _SCRIPT = textwrap.dedent("""
                 assert len(pruned[i]) == len(e), (name, q)
                 if e:
                     np.testing.assert_allclose(pruned[i], e, rtol=1e-3)
+            if name == "opt":
+                assert len(tiled[i]) == len(e), q
+                if e:
+                    np.testing.assert_allclose(tiled[i], e, rtol=1e-3)
             if name == "block_optpfor":
                 assert len(served[i]) == len(e), q
                 if e:
@@ -175,7 +182,10 @@ def test_port_imports_and_serves_without_jax(tmp_path):
     "ds2i_torch.index.sequence_collection", "ds2i_torch.native.build",
     "ds2i_torch.utils.block_profiler", "ds2i_torch.tools.profile_queries",
     "ds2i_torch.tools.profile_decoding", "ds2i_torch.tools.dec_time_regression",
-    "ds2i_torch.tools.optimal_hybrid_index",
+    "ds2i_torch.tools.optimal_hybrid_index", "ds2i_torch.ops.decode",
+    "ds2i_torch.engine.device_index", "ds2i_torch.engine.executor",
+    "ds2i_torch.engine.flat_executor", "ds2i_torch.engine.tile_executor",
+    "ds2i_torch.parallel.sharded_engine",
 ])
 def test_module_imports_first(tmp_path, module):
     """chip_smoke.py imports ds2i_torch.kernels, then ds2i_torch.ops: each
