@@ -2086,6 +2086,22 @@ def segment_bytes(segs, statics):
             + 4 * statics["rows"] * (statics["L_out"] + 1))
 
 
+SEGMENT_STAGE_WORDS = 32  # csrc/segment_decode.cu kStageWords
+
+
+def segment_staged(segs, statics):
+    """(staged, ef): the EF-kind segments with values whose low bits K9
+    stages a word a lane (their n*l bits span at most SEGMENT_STAGE_WORDS
+    words), and all EF-kind segments with values."""
+    from ds2i_torch.ops.segments import SEG_EF, SEG_EF_STRICT
+
+    n = np.minimum(segs["n_vals"], statics["Lseg"]).astype(np.int64)
+    l = segs["lower_bits"].astype(np.int64)
+    ef = (n > 0) & np.isin(segs["kind"], (SEG_EF, SEG_EF_STRICT))
+    nlw = ((segs["lb_start"].astype(np.int64) & 31) + n * l + 31) >> 5
+    return int((ef & (l >= 0) & (nlw <= SEGMENT_STAGE_WORDS)).sum()), int(ef.sum())
+
+
 def engine_calls(engines, queries):
     """The arguments of every decode_rows call one ranked_or over `queries`
     makes in each engine (cls -> [(args, statics), ...]): the engines'
@@ -2171,10 +2187,12 @@ def segment_kernel_phase(dindexes, engines, queries):
             if not torch.equal(got, exp):
                 raise AssertionError(f"segment_decode differs from decode_rows_torch on {name} "
                                      f"{stream}: {int((got != exp).sum())} values")
+            staged, ef = segment_staged(segs, st)
             log(f"generations: K9 segment_decode == decode_rows_torch bit for bit on every {stream} "
                 f"segment of {name} ({len(segs['kind'])} segments, {st['L_out']} values, one "
                 f"launch; the plain version in {len(pieces)} pieces; W {st['W']}, Lseg "
-                f"{st['Lseg']})")
+                f"{st['Lseg']}); low bits staged a word a lane for {staged} of its {ef} EF "
+                f"segments with values ({100.0 * staged / max(ef, 1):.2f}%)")
             if name == "opt" and stream == "docs":
                 ms = cuda_ms(lambda: decode_rows(*args, **st))
                 dev_ms = device_only_ms(lambda: decode_rows(*args, **st))
@@ -2243,12 +2261,38 @@ def tile_group_bytes(gfields, groups):
     return nbytes
 
 
+TILE_CANARIES = (-0x5EED, 0x7EEDBEEF)
+
+
+def tile_written(calls):
+    """(slots K6g wrote, slots j < n_vals) over `calls` (words, fields, W,
+    WL): each call decoded twice into outputs filled with one of two
+    patterns; a slot was written where it differs from its pattern in
+    either (a written value cannot equal both)."""
+    import torch
+
+    from ds2i_torch.engine.tiles import F_NVALS, TILE
+    from ds2i_torch.ops.pair_decode import decode_group
+
+    written = valid = 0
+    for words, fld, W, WL in calls:
+        bufs = [torch.full((fld.shape[0], TILE), c, dtype=torch.int32, device=fld.device)
+                for c in TILE_CANARIES]
+        for buf in bufs:
+            decode_group(words, fld, W, WL, out=buf)
+        written += int(((bufs[0] != TILE_CANARIES[0]) | (bufs[1] != TILE_CANARIES[1])).sum())
+        valid += int(torch.clamp(fld[:, F_NVALS], 0, TILE).sum())
+    return written, valid
+
+
 def tile_kernel_phase(eng):
     """K6g (decode_group, csrc/tile_decode.cu) on every group of the tile
     engine's layout over every list of its index (each list a one-term
     query), both streams, against _decode_stream on the card on the slots
     j < n_vals; all groups' launches timed through the wrapper, alone and
-    plain, beside their bound by bytes. Returns K6g's JSON entry."""
+    plain, beside their bound by bytes, and the bytes they write counted
+    (tile_written: exactly the n_vals slots, none past them, none in a pad
+    row). Returns K6g's JSON entry."""
     import torch
 
     from ds2i_torch.engine.tiles import F_NVALS, N_FIELDS, TILE
@@ -2288,9 +2332,15 @@ def tile_kernel_phase(eng):
     plain_ms = cuda_ms(plain)
     nbytes = tile_group_bytes(gfields, groups)
     bound_ms, bound_by = bound(nbytes)
+    written, valid = tile_written(calls)
+    if written != valid:
+        raise AssertionError(f"tile_decode wrote {written} slots where the contract defines "
+                             f"{valid}")
     log(f"generations: K6g over every opt tile, {len(calls)} launches: {ms:.4f} ms through the "
         f"wrapper, {fmt_ms(dev_ms)} alone, plain PyTorch {plain_ms:.4f} ms (median of 5); bound "
-        f"{bound_ms:.4f} ms by {bound_by} ({nbytes} bytes)")
+        f"{bound_ms:.4f} ms by {bound_by} ({nbytes} bytes); it wrote {4 * written} bytes "
+        f"({written} slots, all j < n_vals: none past them, none in a pad row) of the bound's "
+        f"{4 * valid} bytes of output")
     return {"name": "tile_decode", "route": "cuda", "source": "ds2i_torch/csrc/tile_decode.cu",
             "replaces": "ds2i_tpu/engine/tile_executor.py:61", "launches": None,
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -2392,9 +2442,12 @@ def generations_phase(coll, wdata, queries, opt_index, exact):
     ranked_and and ranked_or); the same engines over the 1x `ef` index on
     300 queries against the oracle; then the sharded plane. Returns the
     JSON entries of K9 and K6g, their launches those of the engines'
-    runs."""
+    runs. Prints each kernel's registers, local and shared bytes once
+    (kernels.attributes), and K9's share of EF segments whose low bits it
+    stages a word a lane (segment_staged)."""
     import torch
 
+    from ds2i_torch import kernels
     from ds2i_torch.engine import DeviceIndex, FlatQueryEngine, QueryEngine, TileQueryEngine
     from ds2i_torch.ops import decode, pair_decode
 
@@ -2411,6 +2464,11 @@ def generations_phase(coll, wdata, queries, opt_index, exact):
     segment_engines = {name: {"QueryEngine": QueryEngine(d, wdata),
                               "FlatQueryEngine": FlatQueryEngine(d, wdata)}
                        for name, d in dindexes.items()}
+    for name in kernels.ATTRIBUTES:
+        a = kernels.attributes(name)
+        log(f"generations: csrc/{name}.cu kernel: {a['registers']} registers a thread, "
+            f"{a['local_bytes']} B local (spilled) a thread, {a['shared_bytes']} B static shared "
+            f"a block (cudaFuncGetAttributes)")
     seg_entry = segment_kernel_phase(dindexes, segment_engines, queries)
     tile_entry = tile_kernel_phase(tile)
     log(f"generations: launches of the kernel checks: "

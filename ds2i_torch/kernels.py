@@ -89,6 +89,12 @@ ENTRY_POINTS = {
     "tile_decode": ("ds2i_tile_decode_group", _TILE_GROUP_ARGS),
 }
 
+# the kernels whose libraries also export ds2i_<entry>_attributes(int*):
+# cudaFuncGetAttributes of the kernel (registers a thread, local bytes a
+# thread, static shared bytes a block)
+ATTRIBUTES = {"segment_decode": "ds2i_segment_decode_attributes",
+              "tile_decode": "ds2i_tile_decode_attributes"}
+
 _LIBS = {}
 _LOCK = threading.Lock()
 
@@ -143,21 +149,39 @@ def _build():
     return paths
 
 
+def load(path, name):
+    """The library at `path`, built from a csrc/<name>.cu, loaded with its
+    entry point's argtypes."""
+    handle = ctypes.CDLL(path)
+    fn_name, argtypes = ENTRY_POINTS[name]
+    fn = getattr(handle, fn_name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    handle.ds2i_cuda_error_string.restype = ctypes.c_char_p
+    handle.ds2i_cuda_error_string.argtypes = [ctypes.c_int]
+    return handle
+
+
 def lib(name):
     """The loaded library of csrc/<name>.cu; the first call builds and
     loads them all."""
     with _LOCK:
         if not _LIBS:
             for lib_name, path in _build().items():
-                handle = ctypes.CDLL(path)
-                fn_name, argtypes = ENTRY_POINTS[lib_name]
-                fn = getattr(handle, fn_name)
-                fn.restype = ctypes.c_int
-                fn.argtypes = argtypes
-                handle.ds2i_cuda_error_string.restype = ctypes.c_char_p
-                handle.ds2i_cuda_error_string.argtypes = [ctypes.c_int]
-                _LIBS[lib_name] = handle
+                _LIBS[lib_name] = load(path, lib_name)
         return _LIBS[name]
+
+
+def attributes(name):
+    """{"registers", "local_bytes", "shared_bytes"} of csrc/<name>.cu's
+    kernel on the current device (a name of ATTRIBUTES)."""
+    handle = lib(name)
+    fn = getattr(handle, ATTRIBUTES[name])
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p]
+    attrs = (ctypes.c_int * 3)()
+    check(handle, fn(ctypes.cast(attrs, ctypes.c_void_p)), f"{name} attributes")
+    return dict(zip(("registers", "local_bytes", "shared_bytes"), attrs))
 
 
 def check(handle, rc, what):

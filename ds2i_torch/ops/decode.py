@@ -45,6 +45,9 @@ from .segments import SEG_AO, SEG_EF, SEG_EF_STRICT, SEG_RB
 
 _M32 = 0xFFFFFFFF
 _I32_LIMIT = 1 << 31
+# the most window words csrc/segment_decode.cu takes (32 * W bits fit in
+# 32 bits); the JAX op's bit planes would need R * W * 32 bits far sooner
+SEGMENT_MAX_W = 1 << 25
 FIELDS = ("kind", "sel_start", "sel_len", "lb_start", "lower_bits", "n_vals", "base",
           "out_begin", "list_row")
 
@@ -158,6 +161,9 @@ def decode_rows(words, kind, sel_start, sel_len, lb_start, lower_bits, n_vals, b
     if min(W, Lseg, rows, L_out) < 1:
         raise ValueError(f"W, Lseg, rows and L_out must be positive, got {W}, {Lseg}, {rows}, "
                          f"{L_out}")
+    if W > SEGMENT_MAX_W:
+        raise ValueError(f"decode_rows on the card takes W <= {SEGMENT_MAX_W} window words, "
+                         f"got {W}")
     out = torch.full((rows, L_out), sentinel, dtype=torch.int32, device=words.device)
     if R == 0:
         return out

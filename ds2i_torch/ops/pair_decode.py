@@ -40,6 +40,9 @@ from .segments import SEG_AO, SEG_EF, SEG_EF_STRICT, SEG_RB
 from . import block_decode  # its names are read at call time: it imports this module
 
 _M32 = 0xFFFFFFFF
+# the most words csrc/tile_decode.cu stages a row (its 4 warps' W + WL + 1
+# words each within a block's 227 KB of shared memory)
+TILE_STAGE_WORDS = 232448 // 16
 
 
 def popcount32(x):
@@ -119,15 +122,25 @@ def _decode_stream(words, fld, W, WL, T):
     return val + col(F_BASE)
 
 
-def decode_group(words, fields, W, WL, T=128):
+def decode_group(words, fields, W, WL, T=128, out=None):
     """One stream of one (W, WL, T) tile group, the JAX package's
     tile_executor._decode_group: field rows (R, N_FIELDS) int32 -> (R, T)
     int32 values; slots j >= n_vals are undefined (the caller masks
     them). CPU tensors take the plain version _decode_stream; CUDA tensors
     make one launch of csrc/tile_decode.cu (K6g, counted in
-    decode_group.launches; it writes 0 there) or raise."""
+    decode_group.launches) or raise. The kernel writes a row's slots
+    j < n_vals and nothing else: the other slots, a pad row's all, are
+    left as they were. `out`, an int32 (R, T) tensor on the words' device,
+    takes the slots j < n_vals in place of a new tensor (tests pass a
+    buffer filled with a pattern to see what was written); on the CPU
+    those slots are copied into it."""
     if words.device.type == "cpu":
-        return _decode_stream(words, fields, W, WL, T).to(torch.int32)
+        vals = _decode_stream(words, fields, W, WL, T).to(torch.int32)
+        if out is None:
+            return vals
+        valid = torch.arange(T)[None, :] < fields[:, F_NVALS, None]
+        out[valid] = vals[valid]
+        return out
     if words.device.type != "cuda":
         raise ValueError(f"decode_group runs on cuda or cpu, not {words.device}")
     if words.dtype != torch.int32 or words.dim() != 1 or words.numel() == 0:
@@ -139,8 +152,16 @@ def decode_group(words, fields, W, WL, T=128):
     if W < 1 or WL < 0 or not 1 <= T <= 128:
         raise ValueError(f"decode_group takes W >= 1, WL >= 0 and 1 <= T <= 128, got {W}, {WL}, "
                          f"{T}")
+    if W + WL + 1 > TILE_STAGE_WORDS:
+        raise ValueError(f"decode_group stages W + WL + 1 <= {TILE_STAGE_WORDS} words a row, got "
+                         f"{W + WL + 1}")
     R = fields.shape[0]
-    out = torch.empty((R, T), dtype=torch.int32, device=words.device)
+    if out is None:
+        out = torch.empty((R, T), dtype=torch.int32, device=words.device)
+    elif (out.dtype != torch.int32 or out.shape != (R, T) or out.device != words.device
+          or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous int32 ({R}, {T}) tensor on {words.device}, "
+                         f"got {out.dtype} {tuple(out.shape)} on {out.device}")
     if R == 0:
         return out
     lib = kernels.lib("tile_decode")

@@ -4,8 +4,10 @@ in the pass (K1s), Varint-G8IU, QMX and interpolative block decode,
 launch by launch and as a whole part, and K7, K8 and K1s on seeded edge
 rows; the
 block-max pass in both forms; the join and pack, K3, on every part of
-every plan; the segment decode K9 on every segment and on seeded edge
-rows, the one-stream tile decode K6g on every group) against its plain
+every plan; the segment decode K9 on every segment, on seeded edge rows
+and on dense steps of 1,024 ones, the one-stream tile decode K6g on
+every group and on seeded edge rows (tests/torch_tile_rows.py), over
+outputs filled with a pattern: nothing past n_vals written) against its plain
 PyTorch version, and ResidentEngine on CUDA against the same
 engine on the CPU, exhaustive and pruned, over every index type and
 past a lowered resident word limit; likewise the earlier engine
@@ -44,11 +46,12 @@ from torch_block_rows import (
 )
 from torch_join_rows import KINDS, bucket_layout, bucket_of, special_rows
 from torch_segment_rows import segment_rows
+from torch_tile_rows import tile_rows
 from ds2i_torch.engine import DeviceIndex, FlatQueryEngine, QueryEngine, TileQueryEngine
 from ds2i_torch.engine.tiles import F_NVALS, N_FIELDS
 from ds2i_torch.ops.decode import FIELDS as SEGMENT_FIELDS
-from ds2i_torch.ops.decode import decode_rows, decode_rows_torch
-from ds2i_torch.ops.pair_decode import _decode_stream, decode_group
+from ds2i_torch.ops.decode import SEGMENT_MAX_W, decode_rows, decode_rows_torch
+from ds2i_torch.ops.pair_decode import TILE_STAGE_WORDS, _decode_stream, decode_group
 from ds2i_torch.parallel.sharded_engine import make_mesh, make_sharded_plane_step
 
 pytestmark = pytest.mark.cuda
@@ -915,6 +918,86 @@ def test_tile_decode_kernel_matches_plain_on_every_group(cuda, coll, name):
             _same_bits(got[valid], exp[valid])
 
 
+def test_segment_kernel_on_dense_rb_steps(cuda):
+    """K9 on segments over a stretch of all-ones words: a ranked-bitvector
+    and an EF segment whose 32-word steps hold 1,024 ones each, over more
+    than four steps (32 rounds of 32 ranks a step), and one that stops
+    mid-step at n_vals; against decode_rows_torch on the card."""
+    rng = np.random.RandomState(7)
+    words = rng.randint(0, 1 << 32, size=4000, dtype=np.uint64).astype(np.uint32)
+    words[500:900] = 0xFFFFFFFF
+    W, Lseg, L_out = 256, 8192, 8192
+    segs = [  # kind, sel_start, sel_len, lb_start, l, n_vals, base
+        (2, 32 * 500 + 3, 32 * 32 * 5 + 700, 0, 0, 6000, 11),
+        (0, 32 * 520, 32 * 32 * 6, 32 * 3000 + 5, 3, 6144, 0),
+        (2, 32 * 600 + 31, 32 * 32 * 7, 0, 0, 2500, -4),
+    ]
+    fields = {k: np.zeros(len(segs), dtype=np.int32) for k in SEGMENT_FIELDS}
+    for r, (kind, ss, sl, lb, l, n, base) in enumerate(segs):
+        for k, v in zip(("kind", "sel_start", "sel_len", "lb_start", "lower_bits", "n_vals",
+                         "base", "list_row"), (kind, ss, sl, lb, l, n, base, r)):
+            fields[k][r] = v
+    list_n = np.full(len(segs), L_out, dtype=np.int32)
+    st = dict(W=W, Lseg=Lseg, rows=len(segs), L_out=L_out, sentinel=123456789)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    args = (t(words.view(np.int32)), *(t(fields[k]) for k in SEGMENT_FIELDS), t(list_n))
+    got = decode_rows(*args, **st)
+    exp = decode_rows_torch(*args, **st)
+    torch.cuda.synchronize()
+    assert [int((exp[r] != st["sentinel"]).sum()) for r in range(len(segs))] == [6000, 6144, 2500]
+    _same_bits(got, exp)
+
+
+def _tile_canary_check(words, fld, W, WL, T=128):
+    """decode_group into two outputs filled with different patterns: the
+    slots j < n_vals equal _decode_stream's in both, every other slot (a
+    pad row's all) keeps its pattern; returns the valid slots."""
+    valid = torch.arange(T, device=fld.device)[None, :] < fld[:, F_NVALS, None]
+    exp = _decode_stream(words, fld, W, WL, T).to(torch.int32)
+    for canary in (-0x5EED, 0x7EEDBEEF):
+        buf = torch.full((fld.shape[0], T), canary, dtype=torch.int32, device=fld.device)
+        before = decode_group.launches
+        got = decode_group(words, fld, W, WL, T, out=buf)
+        torch.cuda.synchronize()
+        assert got is buf and decode_group.launches == before + 1
+        _same_bits(got[valid], exp[valid])
+        assert bool((got[~valid] == canary).all()), "a slot past n_vals was written"
+    return int(valid.sum())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_tile_decode_kernel_on_seeded_rows(cuda, seed):
+    """K6g on tests/torch_tile_rows.py's groups (W = WL = 64, l 0/31/32,
+    every kind, reads past the stream's end, n_vals 0/1/128/above T/
+    negative, few-ones windows, T = 32, W = 256) against _decode_stream on
+    the card, over canary outputs: nothing past n_vals written."""
+    words, groups = tile_rows(seed)
+    w = torch.from_numpy(words.view(np.int32)).to(cuda)
+    for case, fld, W, WL, T in groups:
+        assert _tile_canary_check(w, torch.from_numpy(fld).to(cuda), W, WL, T) > 0, case
+    assert any(W == 64 and WL == 64 for _, _, W, WL, _ in groups)
+
+
+@pytest.mark.parametrize("name", ["ef", "opt"])
+def test_tile_decode_kernel_leaves_slots_past_n_vals(cuda, coll, name):
+    """K6g on every group of the tile layout, both streams, over canary
+    outputs: the slots j < n_vals equal _decode_stream's, the rest and pad
+    rows keep the pattern."""
+    eng = TileQueryEngine(build(coll, name), device=cuda)
+    d = eng.dindex
+    nl = d.num_lists
+    groups, gfields = eng._build_batch(np.arange(nl), np.ones(nl, np.float32),
+                                       np.ones(nl, np.int64))[:2]
+    g = torch.from_numpy(gfields).to(cuda)
+    pads = 0
+    for off, R, W, WL in groups:
+        for s, words in ((0, d.docs_words), (N_FIELDS, d.freqs_words)):
+            fld = g[off:off + R, s:s + N_FIELDS].contiguous()
+            pads += int((fld[:, F_NVALS] <= 0).sum())
+            assert _tile_canary_check(words, fld, W, WL) > 0
+    assert pads > 0
+
+
 @pytest.mark.parametrize("cls", list(GEN_ENGINES))
 @pytest.mark.parametrize("name", ["ef", "opt"])
 def test_generations_engine_on_cuda_equals_engine_on_cpu(cuda, coll, name, cls):
@@ -975,6 +1058,13 @@ def test_generations_wrappers_raise_when_a_launch_fails(cuda, coll, monkeypatch)
         decode_group(eng.dindex.docs_words, fld.long(), 4, 4)
     with pytest.raises(ValueError, match="T <= 128"):
         decode_group(eng.dindex.docs_words, fld, 4, 4, T=256)
+    with pytest.raises(ValueError, match="W <= "):
+        decode_rows(*args, **dict(st, W=SEGMENT_MAX_W + 1))
+    with pytest.raises(ValueError, match="stages W \\+ WL \\+ 1"):
+        decode_group(eng.dindex.docs_words, fld, TILE_STAGE_WORDS, 0)
+    with pytest.raises(ValueError, match="out must be"):
+        decode_group(eng.dindex.docs_words, fld, 4, 4,
+                     out=torch.empty((63, 128), dtype=torch.int32, device=cuda))
 
     class Failing:
         def ds2i_segment_decode(self, *a):

@@ -54,6 +54,7 @@ _SCRIPT = textwrap.dedent("""
     import ds2i_torch.ops.join
     import ds2i_torch.ops.pair_decode
     import ds2i_torch.tools.pass_timeline
+    import ds2i_torch.tools.kernel_turns
     import ds2i_torch.index.verify
     import ds2i_torch.tools.create_freq_index
     import ds2i_torch.tools.create_wand_data
@@ -232,7 +233,8 @@ def test_no_file_of_the_port_imports_the_jax_package():
                    "parallel/doc_sharded.py", "engine/__init__.py",
                    "index/sequence_collection.py", "native/build.py", "utils/block_profiler.py",
                    "tools/profile_queries.py", "tools/profile_decoding.py",
-                   "tools/dec_time_regression.py", "tools/optimal_hybrid_index.py"):
+                   "tools/dec_time_regression.py", "tools/optimal_hybrid_index.py",
+                   "tools/kernel_turns.py"):
         assert os.path.join(_REPO, "ds2i_torch", module) in files
     bad = {os.path.relpath(f, _REPO): hits for f in files if (hits := _names_ds2i_tpu(f))}
     assert not bad, bad

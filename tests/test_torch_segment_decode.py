@@ -8,18 +8,27 @@ the JAX package:
     to the JAX DeviceIndex's;
   - the same on the seeded edge rows of tests/torch_segment_rows.py;
   - a numpy model of csrc/segment_decode.cu's warp, lane by lane (the
-    window walked 32 words a step, each lane storing its word's ones at
-    their ranks, the slots past the window's ones with sel = 0), equal to
-    decode_rows_torch on those rows and on every segment of `ef` and
-    `opt`;
+    fields, then the window, the low words staged a word a lane up to 32
+    of them and list_n in one round; the window walked 32 words a step,
+    each step's ones taken 32 ranks a round, a lane a rank; the slots past
+    the window's ones with sel = 0), equal to decode_rows_torch on those
+    rows and on every segment of `ef` and `opt`;
   - decode_group's plain path against the JAX tile_executor._decode_group
     on every group of every EF-family index's tile tables, both streams,
     the n_vals slots;
+  - a numpy model of csrc/tile_decode.cu's warp, lane by lane (the row's
+    fields in one round, its window and low words staged in one round,
+    the lane-a-rank select, writes only where j < n_vals), equal to
+    _decode_stream on the n_vals slots of every group of the four types'
+    tile layouts and of tests/torch_tile_rows.py's seeded edge rows, and
+    writing nothing else (two patterned fills); decode_group(out=) on the
+    CPU;
   - ValueError where a segment's bits lie past bit 2^31 of its stream;
   - make_sharded_plane_step against the JAX one on the 8-device CPU mesh
     (dp x tp = 4 x 2 and 2 x 4) on seeded batches.
 
-All inputs come from numpy seeds. Serial time ~25 s on the CPU."""
+All inputs come from numpy seeds. Serial time ~40 s on the CPU (the
+models' tests ~10 s of it)."""
 
 import gc
 
@@ -42,12 +51,14 @@ from ds2i_torch.engine import DeviceIndex, QueryEngine, TileQueryEngine
 from ds2i_torch.engine.tiles import F_NVALS, N_FIELDS
 from ds2i_torch.ops import decode
 from ds2i_torch.ops.decode import FIELDS, decode_rows, decode_rows_torch, decode_segments_numpy
-from ds2i_torch.ops.pair_decode import decode_group
+from ds2i_torch.ops.pair_decode import _decode_stream, decode_group
 from ds2i_torch.ops.segments import SEG_AO, SEG_EF, SEG_EF_STRICT, SEG_RB
 from ds2i_torch.parallel.sharded_engine import make_mesh, make_sharded_plane_step
 
 from test_torch_host_copy import build_index
 from torch_segment_rows import segment_rows
+from torch_tile_rows import CASES as TILE_CASES
+from torch_tile_rows import tile_rows
 
 EF_TYPES = ["ef", "single", "uniform", "opt"]
 _jax_group = jax.jit(jax_decode_group, static_argnums=(2, 3))
@@ -114,86 +125,254 @@ def jax_call(words, fields, list_n, statics):
                                       jnp.asarray(list_n), **statics))
 
 
-# -- a numpy model of csrc/segment_decode.cu, lane by lane -------------------
+# -- numpy models of csrc/segment_decode.cu and csrc/tile_decode.cu ----------
+#
+# Each models the kernel's warps lane by lane: a warp a segment (K9) or a
+# row (K6g), every warp of the launch at once (axis 0), its 32 lanes on
+# axis 1; a shuffle is a gather along the lane axis, and a loop whose trip
+# count is warp-uniform runs to the largest count with the warps past
+# theirs masked off.
 
 _M32 = 0xFFFFFFFF
+LANES = np.arange(32)
 
 
 def _low_mask(h):
-    return _M32 if h >= 32 else (0 if h <= 0 else (1 << h) - 1)
+    """(1 << h) - 1 for h clipped to [0, 32], elementwise."""
+    h = np.asarray(h, dtype=np.int64)
+    return np.where(h >= 32, _M32, (np.int64(1) << np.clip(h, 0, 31)) - 1)
+
+
+def _shfl(x, src):
+    """__shfl_sync: each lane reads lane src & 31 of its warp's x."""
+    return np.take_along_axis(x, np.broadcast_to(src, x.shape) & 31, axis=1)
+
+
+def _scan(pc):
+    return np.cumsum(pc, axis=1)
+
+
+def _select_in_word(x, rem):
+    """The 5-step popcount search for the (rem+1)-th one of x (31 past its
+    ones), elementwise."""
+    pos = np.zeros_like(rem)
+    for width in (16, 8, 4, 2, 1):
+        c = np.bitwise_count((x & (((1 << width) - 1) << pos)).astype(np.uint64)).astype(np.int64)
+        right = rem >= c
+        rem = rem - np.where(right, c, 0)
+        pos = pos + np.where(right, width, 0)
+    return pos
+
+
+def _lane_rank_rounds(v, before, end, c):
+    """One walk step's select, a lane a rank: for each round of 32 ranks r0
+    (warp-uniform, r0 from `before` while below `end`), each lane's rank,
+    the step's word holding it (5-step binary search over the inclusive
+    scan), and its window bit. Yields (j, sel, active) per round, (R, 32)
+    each."""
+    pc = np.bitwise_count(v.astype(np.uint64)).astype(np.int64)
+    inc = _scan(pc)
+    r0 = before.copy()
+    while (r0 < end).any():
+        live = (r0 < end)[:, None]
+        t = r0[:, None] + LANES - before[:, None]
+        wi = np.zeros_like(t)
+        for d in (16, 8, 4, 2, 1):
+            wi = wi + np.where(_shfl(inc, wi + d - 1) <= t, d, 0)
+        word = _shfl(v, wi)
+        excl = _shfl(inc - pc, wi)
+        sel = (c + wi) * 32 + _select_in_word(word, t - excl)
+        j = r0[:, None] + LANES
+        yield j, sel, live & (j < end[:, None])
+        r0 = r0 + 32
 
 
 def k9_model(words, fields, list_n, W, Lseg, rows, L_out, sentinel):
-    """What segment_rows_kernel writes, a warp a segment: the window walked
-    32 words a step (lane w masks word w; an inclusive scan of the
-    popcounts; each lane stores its word's ones at their ranks while
-    rank < n), the walk ending at the last needed word or at n ones, then
-    slot j = before + lane + 32 t with sel = 0."""
+    """What segment_rows_kernel writes into an output filled with the
+    sentinel: round 1 the nine fields; round 2 together the window's first
+    32 words (a word a lane), the low words where the segment's n*l bits
+    span at most 32 (a word a lane) and list_n[row]; the walk, 32 words a
+    step, each step's ones taken 32 ranks a round, a lane a rank (its word
+    by binary search over the scan, its bit by the popcount search, its two
+    low words by shuffle from the staged ones, else from device memory);
+    then the slots past the window's ones, sel = 0, a lane a slot."""
+    words = np.asarray(words, dtype=np.int64)
     nw = len(words)
     out = np.full((rows, L_out), sentinel, dtype=np.int64)
 
     def load(i):
-        return int(words[min(max(i, 0), nw - 1)])
+        return words[np.clip(i, 0, nw - 1)]
 
     f = {k: fields[k].astype(np.int64) for k in FIELDS}
-    for r in range(len(f["kind"])):
-        n = min(int(f["n_vals"][r]), Lseg)
-        row = int(f["list_row"][r])
-        row = row + rows if row < 0 else row
-        if n <= 0 or not 0 <= row < rows:
-            continue
-        lim = min(L_out, int(list_n[row]))
-        if lim <= 0:
-            continue
-        kind, l = int(f["kind"][r]), int(f["lower_bits"][r])
-        lb, ob, base = int(f["lb_start"][r]), int(f["out_begin"][r]), int(f["base"][r]) & _M32
+    kind, l, lb, ob, base = f["kind"], f["lower_bits"], f["lb_start"], f["out_begin"], f["base"]
+    n = np.minimum(f["n_vals"], Lseg)
+    row = np.where(f["list_row"] < 0, f["list_row"] + rows, f["list_row"])
+    live = (n > 0) & (row >= 0) & (row < rows)
+    ef = (kind == SEG_EF) | (kind == SEG_EF_STRICT)
+    windowed = ef | (kind == SEG_RB)
+    word0, off, slen = f["sel_start"] >> 5, f["sel_start"] & 31, f["sel_len"]
+    nwin = np.minimum(np.where(windowed & (slen > 0), (off + slen + 31) >> 5, 0), W)
+    lbw0 = lb >> 5
+    nlw = np.where(ef & (l >= 0), ((lb & 31) + n * l + 31) >> 5, 0)
+    staged = ef & (l >= 0) & (nlw <= 32)
+    # round 2
+    win = np.where(LANES < nwin[:, None], load(word0[:, None] + LANES), 0)
+    lw = np.where(staged[:, None] & (LANES < nlw[:, None]), load(lbw0[:, None] + LANES), 0)
+    lim = np.minimum(L_out, list_n[np.clip(row, 0, rows - 1)].astype(np.int64))
+    live &= lim > 0
 
-        def store(j, sel):
-            col = ob + j
-            if col < 0:
-                col += L_out + 1
-            if not 0 <= col < lim:
-                return
-            wide = l >= 32 or l < 0
-            val = 0
-            if kind in (SEG_EF, SEG_EF_STRICT):
-                bit_off = lb + j * l
-                w0i, sh = bit_off >> 5, bit_off & 31
-                w0, w1 = load(w0i), load(w0i + 1)
-                low = ((w0 >> sh) | ((w1 << (32 - sh)) & _M32 if sh else 0)) & \
-                    (_M32 if wide else (1 << l) - 1)
-                val = (0 if wide else (((sel - j - 1) & _M32) << l) & _M32) | low
-                if kind == SEG_EF_STRICT:
-                    val = (val + j) & _M32
-            elif kind == SEG_RB:
-                val = sel & _M32
-            elif kind == SEG_AO:
-                val = j & _M32
-            v = (val + base) & _M32
-            out[row, col] = v - (1 << 32) if v >= 1 << 31 else v
+    def store(j, sel, active):
+        bit_off = lb[:, None] + j * l[:, None]
+        sh = bit_off & 31
+        rel = (bit_off >> 5) - lbw0[:, None]
+        w0 = np.where(staged[:, None], _shfl(lw, rel), load(bit_off >> 5))
+        w1 = np.where(staged[:, None], np.where(rel + 1 >= 32, 0, _shfl(lw, rel + 1)),
+                      load((bit_off >> 5) + 1))
+        col = ob[:, None] + j
+        col = np.where(col < 0, col + L_out + 1, col)
+        active = active & live[:, None] & (col >= 0) & (col < lim[:, None])
+        wide = ((l >= 32) | (l < 0))[:, None]
+        lc = np.clip(l, 0, 31)[:, None]
+        low = ((w0 >> sh) | np.where(sh > 0, (w1 << (32 - sh)) & _M32, 0)) & \
+            np.where(wide, _M32, (np.int64(1) << lc) - 1)
+        efv = np.where(wide, 0, (((sel - j - 1) & _M32) << lc) & _M32) | low
+        k = kind[:, None]
+        val = np.where(k == SEG_EF, efv, 0)
+        val = np.where(k == SEG_EF_STRICT, (efv + j) & _M32, val)
+        val = np.where(k == SEG_RB, sel & _M32, val)
+        val = np.where(k == SEG_AO, j & _M32, val)
+        v = (val + (base[:, None] & _M32)) & _M32
+        v = np.where(v >= 1 << 31, v - (1 << 32), v)
+        rr = np.broadcast_to(row[:, None], j.shape)
+        out[rr[active], col[active]] = v[active]
 
-        start, slen = int(f["sel_start"][r]), int(f["sel_len"][r])
-        word0, off = start >> 5, start & 31
-        needed = (off + slen + 31) >> 5 if slen > 0 else 0
-        nwin = min(needed, W)
-        before, c = 0, 0
-        while c < nwin and before < n:
-            v = [load(word0 + c + lane) & (_low_mask(off + slen - 32 * (c + lane))
-                                           & ~_low_mask(off - 32 * (c + lane)) & _M32)
-                 if c + lane < nwin else 0 for lane in range(32)]
-            pc = [bin(x).count("1") for x in v]
-            inc = np.cumsum(pc)
-            for lane in range(32):
-                rank, x = before + int(inc[lane]) - pc[lane], v[lane]
-                while x and rank < n:
-                    b = (x & -x).bit_length() - 1
-                    x &= x - 1
-                    store(rank, (c + lane) * 32 + b - off)
-                    rank += 1
-            before += int(inc[31])
-            c += 32
-        for j in range(before, n):
-            store(j, 0)
+    before = np.zeros(len(n), dtype=np.int64)
+    for c in range(0, int(nwin.max(initial=0)), 32):
+        walk = live & (c < nwin) & (before < n)
+        if not walk.any():
+            break
+        k = c + LANES
+        nxt = np.where(k + 32 < nwin[:, None], load(word0[:, None] + k + 32), 0)
+        v = win & (_low_mask(off[:, None] + slen[:, None] - 32 * k)
+                   & ~_low_mask(off[:, None] - 32 * k) & _M32)
+        v = np.where(walk[:, None], v, 0)
+        tot = _scan(np.bitwise_count(v.astype(np.uint64)).astype(np.int64))[:, 31]
+        end = np.where(walk, np.minimum(before + tot, n), before)
+        for j, sel, active in _lane_rank_rounds(v, before, end, c):
+            store(j, sel - off[:, None], active)
+        before = np.where(walk, before + tot, before)
+        win = nxt
+    j0 = before.copy()
+    while (live & (j0 < n)).any():
+        j = j0[:, None] + LANES
+        store(j, np.zeros_like(j), j < n[:, None])
+        j0 = j0 + 32
+    return out
+
+
+def k6g_model(words, fld, W, WL, T, canary):
+    """What tile_group_kernel writes into an (R, T) output filled with
+    `canary`: round 1 lanes 0-10 load the row's field words (a shuffle
+    broadcasts each), a pad row (n_vals <= 0) stops; round 2 the window
+    words that hold the row's bits and the low words its slots read, a
+    word a lane, into the warp's staging (a word never staged is never
+    read: asserted); the walk, 32 staged words a step, a lane a rank;
+    the slots past the window's ones select in word W-1; kinds without a
+    window a lane a slot. Only slots j < min(n_vals, T) are written."""
+    from ds2i_torch.engine.tiles import (
+        F_BASE, F_KIND, F_LB_BITOFF, F_LB_WORD0, F_LOWER_BITS, F_SEL_ADJ, F_WIN_BITOFF,
+        F_WIN_LEN, F_WIN_WORD0,
+    )
+
+    words = np.asarray(words, dtype=np.int64)
+    nw = len(words)
+    R = len(fld)
+    out = np.full((R, T), canary, dtype=np.int64)
+    # round 1: lane i < N_FIELDS holds field word i; broadcasts by shuffle
+    mine = np.where(LANES < N_FIELDS, fld.astype(np.int64)[:, np.minimum(LANES, N_FIELDS - 1)], 0)
+    g = {c: _shfl(mine, np.full((R, 32), c))[:, 0] for c in range(N_FIELDS)}
+    n = np.minimum(g[F_NVALS], T)
+    live = n > 0
+    kind, bitoff, wlen, adj, l = (g[c] for c in (F_KIND, F_WIN_BITOFF, F_WIN_LEN, F_SEL_ADJ,
+                                                 F_LOWER_BITS))
+    lbo, base = g[F_LB_BITOFF], g[F_BASE]
+    ef = (kind == SEG_EF) | (kind == SEG_EF_STRICT)
+    windowed = ef | (kind == SEG_RB)
+    hi_bit = bitoff + wlen
+    nwin = np.minimum(np.where(windowed & (wlen > 0), (hi_bit + 31) >> 5, 0), W)
+    a = np.clip(lbo >> 5, 0, WL)
+    b = np.clip((lbo + (np.maximum(n, 1) - 1) * l) >> 5, 0, WL)
+    nlw = np.where(ef, np.minimum(np.maximum(a, b) + 1, WL) + 1, 0)
+    # round 2: the warp's staging, W window words then WL + 1 low words
+    stage = np.zeros((R, W + WL + 1), dtype=np.int64)
+    staged = np.zeros((R, W + WL + 1), dtype=bool)
+    k = np.arange(W)
+    m = live[:, None] & (k < nwin[:, None])
+    stage[:, :W] = np.where(m, words[np.clip(g[F_WIN_WORD0][:, None] + k, 0, nw - 1)], 0)
+    staged[:, :W] = m
+    k = np.arange(WL + 1)
+    m = live[:, None] & (k < nlw[:, None])
+    stage[:, W:] = np.where(m, words[np.clip(g[F_LB_WORD0][:, None] + k, 0, nw - 1)], 0)
+    staged[:, W:] = m
+    rows = np.arange(R)[:, None]
+
+    def read(idx, active):
+        assert staged[rows, idx][active].all(), "read a staging word that was never copied"
+        return stage[rows, idx]
+
+    def winmask(kk):
+        return _low_mask(hi_bit[:, None] - 32 * kk) & ~_low_mask(bitoff[:, None] - 32 * kk) & _M32
+
+    def write(j, sel, active):
+        active = active & live[:, None]
+        bit_off = lbo[:, None] + j * l[:, None]
+        w0i = np.clip(bit_off >> 5, 0, WL)
+        s = bit_off & 31
+        isef = ef[:, None] & active
+        lw0 = np.where(isef, read(W + w0i, isef), 0)
+        has1 = isef & (w0i + 1 <= WL)
+        lw1 = np.where(has1, read(W + np.minimum(w0i + 1, WL), has1), 0)
+        lowv = ((lw0 >> s) | np.where(s > 0, (lw1 << (32 - s)) & _M32, 0)) & _low_mask(l)[:, None]
+        high = np.maximum(sel + adj[:, None] - j, 0)
+        efv = np.where(l[:, None] >= 32, 0, (high << np.clip(l, 0, 31)[:, None]) & _M32) | lowv
+        kk = kind[:, None]
+        val = np.where(kk == SEG_EF, efv, 0)
+        val = np.where(kk == SEG_EF_STRICT, efv + j, val)
+        val = np.where(kk == SEG_RB, sel + adj[:, None], val)
+        val = np.where(kk == SEG_AO, j, val)
+        v = (val + base[:, None]) & _M32
+        v = np.where(v >= 1 << 31, v - (1 << 32), v)
+        jj = np.clip(j, 0, T - 1)
+        out[np.broadcast_to(rows, j.shape)[active], jj[active]] = v[active]
+
+    # kinds without a window: a lane a slot
+    flat = live & ~windowed
+    for j0 in range(0, T, 32):
+        j = j0 + LANES[None, :].repeat(R, 0)
+        write(j, np.zeros_like(j), flat[:, None] & (j < n[:, None]))
+    walkers = live & windowed
+    before = np.zeros(R, dtype=np.int64)
+    for c in range(0, W, 32):
+        walk = walkers & (c < nwin) & (before < n)
+        if not walk.any():
+            break
+        kk = c + LANES[None, :].repeat(R, 0)
+        inw = walk[:, None] & (kk < nwin[:, None])
+        v = np.where(inw, read(np.minimum(kk, W - 1), inw) & winmask(kk), 0)
+        tot = _scan(np.bitwise_count(v.astype(np.uint64)).astype(np.int64))[:, 31]
+        end = np.where(walk, np.minimum(before + tot, n), before)
+        for j, sel, active in _lane_rank_rounds(v, before, end, c):
+            write(j, sel - bitoff[:, None], active)
+        before = np.where(walk, before + tot, before)
+    tail = walkers & (before < n)
+    full = tail & (nwin == W)
+    last = np.where(full, read(np.full((R, 1), W - 1), full[:, None])[:, 0]
+                    & winmask(np.full((R, 1), W - 1))[:, 0], 0)
+    for q in range(0, T, 32):
+        j = before[:, None] + q + LANES
+        rem = j - before[:, None]
+        sel = (W - 1) * 32 + _select_in_word(last[:, None] + 0 * j, rem) - bitoff[:, None]
+        write(j, sel, tail[:, None] & (j < n[:, None]))
     return out
 
 
@@ -265,6 +444,66 @@ def test_decode_group_plain_matches_jax_per_group(coll, name):
             valid = np.arange(got.shape[1])[None, :] < fld[:, F_NVALS, None]
             assert valid.any()
             np.testing.assert_array_equal(got[valid], exp[valid], err_msg=f"{stream} {W} {WL}")
+
+
+CANARIES = (-0x5EED, 0x7EEDBEEF)  # two fills: a slot written reads a value other than both
+
+
+def _k6g_check(words_u32, fld, W, WL, T, what):
+    """k6g_model over one group against _decode_stream on the slots
+    j < n_vals, and no slot past them (nor of a pad row) written."""
+    exp = _decode_stream(_t(words_u32.view(np.int32)), _t(fld), W, WL, T).to(torch.int32).numpy()
+    valid = np.arange(T)[None, :] < fld[:, F_NVALS, None]
+    for canary in CANARIES:
+        got = k6g_model(words_u32, fld, W, WL, T, canary)
+        np.testing.assert_array_equal(got[valid], exp[valid], err_msg=what)
+        assert (got[~valid] == canary).all(), f"{what}: a slot past n_vals was written"
+    return int(valid.sum())
+
+
+@pytest.mark.parametrize("name", EF_TYPES)
+def test_k6g_model_matches_plain_per_group(coll, name):
+    """k6g_model on every group of the tile engine's layout over every list,
+    both streams: the n_vals slots equal _decode_stream's, nothing else
+    written."""
+    eng = TileQueryEngine(build_index(coll, name, "port"), device="cpu")
+    nl = eng.dindex.num_lists
+    groups, gfields = eng._build_batch(np.arange(nl), np.ones(nl, np.float32),
+                                       np.ones(nl, np.int64))[:2]
+    slots = 0
+    for stream, words in (("docs", eng.dindex.docs_words), ("freqs", eng.dindex.freqs_words)):
+        w = words.numpy().view(np.uint32)
+        for off, R, W, WL in groups:
+            fld = gfields[off:off + R, (0 if stream == "docs" else N_FIELDS):][:, :N_FIELDS]
+            slots += _k6g_check(w, np.ascontiguousarray(fld), W, WL, 128,
+                                f"{name} {stream} ({W}, {WL})")
+    assert slots > 10_000
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k6g_model_matches_plain_on_seeded_edge_rows(seed):
+    """k6g_model on tests/torch_tile_rows.py's groups: W = WL = 64, l 0, 31
+    and 32, every kind, windows and low words past the stream's end, n_vals
+    0, 1, 128, above T and negative, few-ones windows, T = 32, W = 256."""
+    words, groups = tile_rows(seed)
+    assert [g[0] for g in groups] == list(TILE_CASES)
+    for case, fld, W, WL, T in groups:
+        assert _k6g_check(words, fld, W, WL, T, case) > 0
+
+
+def test_decode_group_out_keyword_on_cpu():
+    """decode_group(out=) on the CPU writes the slots j < n_vals into the
+    given buffer and leaves the rest as they were."""
+    words, groups = tile_rows(2)
+    case, fld, W, WL, T = groups[0]
+    t_words = _t(words.view(np.int32))
+    buf = torch.full((len(fld), T), CANARIES[0], dtype=torch.int32)
+    got = decode_group(t_words, _t(fld), W, WL, T, out=buf)
+    assert got is buf
+    valid = torch.arange(T)[None, :] < _t(fld)[:, F_NVALS, None]
+    exp = decode_group(t_words, _t(fld), W, WL, T)
+    assert torch.equal(got[valid], exp[valid])
+    assert bool((got[~valid] == CANARIES[0]).all()) and bool((~valid).any())
 
 
 def test_cpu_wrapper_takes_plain_version_without_counting():

@@ -20,6 +20,8 @@ one slot, which the op leaves unordered):
   negative    a negative out_begin and list_row (counted from the end)
   offgrid     list_row past the rows (every write dropped)
   stream_end  a window and low bits past the last word (clamped reads)
+  dense       ranked-bitvector and EF segments over all-ones words: 32-word
+              steps of 1,024 ones (32 rounds of 32 ranks) up to Lseg
   pad         kind -1, n_vals 0, list_row the spare last row
 """
 
@@ -29,7 +31,7 @@ from ds2i_torch.ops.decode import FIELDS
 from ds2i_torch.ops.segments import SEG_AO, SEG_EF, SEG_EF_STRICT, SEG_RB
 
 CASES = ("long", "past_lseg", "few_ones", "past_w", "l0", "l31", "l32", "kinds", "partitions",
-         "masked", "negative", "offgrid", "stream_end", "pad")
+         "masked", "negative", "offgrid", "stream_end", "dense", "pad")
 
 
 def segment_rows(seed):
@@ -84,6 +86,9 @@ def segment_rows(seed):
     rows.append(("offgrid", seg(SEG_EF, bit(32 * 2400, 32 * 2410), 400, 32 * 5100, 2, 150,
                                 row=10_000)))
     rows.append(("stream_end", seg(SEG_EF, 32 * (nw - 3) + 17, 400, 32 * (nw - 2) + 29, 7, 60)))
+    words[5300:5560] = 0xFFFFFFFF  # the dense stretch
+    rows.append(("dense", seg(SEG_RB, 32 * 5300 + 9, 32 * 32 * 5 + 300, 0, 0, 2000, base=2)))
+    rows.append(("dense", seg(SEG_EF, 32 * 5330, 32 * 32 * 7, 32 * 5800 + 3, 1, 2048)))
     rows.append(("pad", seg(-1, 0, 0, 0, 0, 0, row=-1)))
 
     n_rows = len(rows) + 3  # a free row for each of the negative and pad rows
