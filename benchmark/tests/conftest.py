@@ -1,0 +1,65 @@
+"""Fixtures of the benchmark's own tests: a checkout-like root in a
+temporary directory, holding a BENCHMARK.json of tiny cells (2,000
+docs) and the benchmark's traffic mixes and metric readers, whose runs
+the tests drive on the CPU through run.run_cell."""
+
+import json
+import os
+import shutil
+import sys
+
+import pytest
+
+BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(BENCH)
+for p in (BENCH, ROOT):
+    if p not in sys.path:
+        sys.path.insert(0, p)
+
+TINY = {"num_docs": 2000, "num_terms": 22000, "postings_target": 300000}
+CELLS = {
+    "tiny_block.and_skip-b1024": ("tiny_block", "and_skip-b1024"),
+    "tiny_opt.and-b1024": ("tiny_opt", "and-b1024"),
+}
+
+
+def make_root(path):
+    """A root with BENCHMARK.json's tiny cells and the benchmark's data
+    files and readers; the modules run from the repository's copy."""
+    bench = os.path.join(path, "benchmark")
+    for sub in ("traffic", "metrics"):
+        shutil.copytree(os.path.join(BENCH, sub), os.path.join(bench, sub))
+    os.makedirs(os.path.join(bench, "configs"))
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        spec = json.load(f)
+    spec["configs"] = []
+    for name, base in (("tiny_block", "block_optpfor-50x"), ("tiny_opt", "opt-5x")):
+        with open(os.path.join(BENCH, "configs", f"{base}.json")) as f:
+            cfg = json.load(f)
+        cfg.update(name=name, **TINY)
+        rel = f"benchmark/configs/{name}.json"
+        with open(os.path.join(path, rel), "w") as f:
+            json.dump(cfg, f)
+        spec["configs"].append({"name": name, "source": cfg["source"], "file": rel,
+                                "reduced": sorted(TINY), "why": "a tiny test size"})
+    spec["workloads"] = [{"name": n, "config": c, "traffic": t, "chips": 1, "why": "test"}
+                         for n, (c, t) in CELLS.items()]
+    for m in spec["per_layer"]:
+        m["workloads"] = [n for n in CELLS if "opt" in n or m["name"] != "decode_roofline"]
+    with open(os.path.join(path, "BENCHMARK.json"), "w") as f:
+        json.dump(spec, f, indent=1)
+    return str(path)
+
+
+@pytest.fixture(scope="session")
+def tiny_root(tmp_path_factory):
+    return make_root(tmp_path_factory.mktemp("bench_root"))
+
+
+@pytest.fixture
+def cuda_card():
+    """Skips the test without a CUDA card (decided here, never at import)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
