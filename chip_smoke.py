@@ -75,7 +75,7 @@ doc-range shards, make_engine, replicas and cache_dir.
   ranked_and; kernels blockmax, optpfor_decode and interp_decode):
   8. every count set to 0, then build_blockmax over the collection
      (blockmax in planes form), prepare(prune=True, ops=("and",)) with
-     its probe on the card (its timings, the probe's rows), 1 warmup + 9
+     its probe on the card (the plan's counts), 1 warmup + 9
      timed passes; the directory entries kept against the exhaustive
      plan's; the whole query log against the exhaustive pass, query by
      query (equal lengths, rtol 1e-3, no mismatch); _ensure_blockmax on a
@@ -1147,9 +1147,8 @@ def slice_phase(eng, queries, wrappers, tag, prune=False):
     log(f"{tag} slice phase: prepare {t1 - t0:.2f} s ({len(plan['plans'])} parts, "
         f"{ngroups} decode groups); warmup pass {t2 - t1:.2f} s")
     if prune:
-        log(f"{tag} slice phase: prepare timings (s): "
-            f"{ {k: round(v, 4) for k, v in plan['timings'].items()} }; the AND probe ran "
-            f"{plan['probe_rows']} of {len(queries)} rows")
+        log(f"{tag} slice phase: the plan's counts {plan['counts']}; the AND probe ran "
+            f"{plan['counts']['probe_rows']} of {len(queries)} rows")
     times = []
     launches0 = [w.launches for w in wrappers]
     for _ in range(PASSES):
@@ -1893,7 +1892,7 @@ def cache_phase(name, index, coll, wdata, queries, cache_dir, dev):
         log(f"front door: {name} cache_dir, {run} engine: set-up (s) "
             f"{ {k: round(v, 4) for k, v in t.items()} }, total {sum(t.values()):.4f}; K5 "
             f"launches {k5}, decode launches before the first pass {dec}; the AND probe ran "
-            f"{plan['probe_rows']} rows")
+            f"{plan['counts']['probe_rows']} rows")
         del eng
     (_, k5_cold, _, cold), (_, k5_warm, dec_warm, warm) = runs
     if k5_cold <= 0 or k5_warm != 0 or dec_warm != 0:

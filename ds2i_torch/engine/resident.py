@@ -59,6 +59,13 @@ the index (tile tables, exception patches, the norm cache, the block-max
 tables, the probe thresholds) in files keyed by the index, the norm
 lengths and the backend, so a restart loads instead of walking and
 decoding again.
+
+Tracing: the stages of prepare, dispatch and collect are marked by
+utils.trace.span ("ds2i.parse", "ds2i.prune", "ds2i.probe",
+"ds2i.theta_cache", "ds2i.split", "ds2i.layout", "ds2i.upload",
+"ds2i.decode", "ds2i.join", "ds2i.download", "ds2i.wait",
+"ds2i.unpack"), which record only under a running torch.profiler; every
+plan carries its counters in plan["counts"] (PLAN_COUNTS).
 """
 
 import contextlib
@@ -66,7 +73,6 @@ import hashlib
 import json
 import math
 import os
-import time
 import zipfile
 from typing import NamedTuple
 
@@ -77,6 +83,7 @@ from ..device import resolve_device
 from ..queries.bm25 import BM25
 from ..queries.parsing import query_freqs
 from ..utils.logging import logger
+from ..utils.trace import span
 
 from ..ops import block_decode, blockmax, join, pair_decode
 from .block_tiles import BF_EX_BASE, build_block_tables, build_exception_patches
@@ -93,6 +100,21 @@ BLOCK = 32
 # pairs the engine decodes the exceptions in the pass instead ("opt"
 # statics, K1s), as the JAX engine does (its ex_patch = 0 there).
 RESIDENT_WORD_LIMIT = 2**31
+# a plan's counters (plan["counts"]), from host arrays the planner holds
+# (none reads the device): the blocks of the batch's query terms before
+# any pruning, the final directory's entries, the rows the probe's
+# sub-plan ran, the blocks the part layouts decode, and the bytes
+# dispatch copies to the device for the plan. The probe's sub-plan keeps
+# counts of its own.
+PLAN_COUNTS = ("dir_blocks", "dir_kept", "probe_rows", "decode_blocks", "upload_bytes")
+
+
+def _plan(plans, n, k, ops, **counts):
+    """A plan over its parts: its counts (PLAN_COUNTS) as given,
+    decode_blocks summed over the parts, the others 0."""
+    counts = {**dict.fromkeys(PLAN_COUNTS, 0), **counts,
+              "decode_blocks": sum(p["decode_blocks"] for p in plans)}
+    return {"plans": plans, "n": n, "k": k, "ops": ops, "counts": counts}
 
 
 def _pow2_at_least(x, lo=1):
@@ -204,8 +226,10 @@ def _resident_step(state, gtile_ids, gtile_f, blkperm, layout, join_layout, num_
     blkperm are the split-mode freqs layout (placeholders in pair mode)."""
     ops = join_layout.ops
     ranked = ("or" in ops) or ("and" in ops)
-    docs32, w32 = _decode_part(state, gtile_ids, gtile_f, blkperm, layout, num_docs, ranked)
-    return join.join_part(docs32, w32, join_layout, num_docs, fetch16, fscale)
+    with span("ds2i.decode"):
+        docs32, w32 = _decode_part(state, gtile_ids, gtile_f, blkperm, layout, num_docs, ranked)
+    with span("ds2i.join"):
+        return join.join_part(docs32, w32, join_layout, num_docs, fetch16, fscale)
 
 
 # -- engine ------------------------------------------------------------------
@@ -317,7 +341,6 @@ class ResidentEngine:
         self.num_docs = index.num_docs()
         self.max_part_slots = max_part_slots
         self.max_part_queries = max_part_queries
-        self._probe_rows = 0  # rows the probes of the last pruned prepare ran
         self.wmax_blk = None  # the block-max metadata, once built (_install_blockmax)
         num_lists = index.size()
         if hasattr(index, "docs_sequences"):
@@ -1289,22 +1312,26 @@ class ResidentEngine:
         keep[nidx[~ok]] = False
         return keep
 
-    def _probe_theta(self, pdir, terms, qw, counts, k, tmax, op):
+    def _probe_theta(self, pdir, terms, qw, counts, k, tmax, op, tally):
         """Run a one-shot pruned sub-plan over directory pdir on the
         device (f32 downloads) and return each row's k-th best `op`
         ("or" or "and") score, -inf where it found fewer than k. Its rows
-        add to self._probe_rows."""
-        self._probe_rows += len(counts)
+        add to tally["probe_rows"], the batch plan's count; the sub-plan
+        keeps counts of its own."""
+        tally["probe_rows"] += len(counts)
         qe = np.cumsum(counts)
         qs = qe - counts
+        with span("ds2i.split"):
+            parts = self._split_parts(pdir, counts)
         plans = []
-        for q0, q1, pd in self._split_parts(pdir, counts):
-            pp = self._part_plan(terms[qs[q0]:qe[q1 - 1]], qw[qs[q0]:qe[q1 - 1]],
-                                 counts[q0:q1], k, (op,), tmax, qids=np.arange(q0, q1),
-                                 pruned_dir=pd)
+        for q0, q1, pd in parts:
+            with span("ds2i.layout"):
+                pp = self._part_plan(terms[qs[q0]:qe[q1 - 1]], qw[qs[q0]:qe[q1 - 1]],
+                                     counts[q0:q1], k, (op,), tmax, qids=np.arange(q0, q1),
+                                     pruned_dir=pd)
             pp["fscale"] = None  # thresholds need f32 downloads
             plans.append(pp)
-        pplan = {"plans": plans, "n": len(counts), "k": k, "ops": (op,)}
+        pplan = _plan(plans, len(counts), k, (op,), dir_kept=len(pdir[0]))
         col = 2 if op == "or" else 3
         theta = np.full(len(counts), -np.inf)
         for qi, r in enumerate(self.collect(pplan, self.dispatch(pplan))):
@@ -1314,7 +1341,7 @@ class ResidentEngine:
                 theta[qi] = float(fin[k - 1])
         return theta
 
-    def _and_prefix_probe(self, dir0, terms, qw, counts, k, tmax):
+    def _and_prefix_probe(self, dir0, terms, qw, counts, k, tmax, tally):
         """Docid-prefix AND probe: for rows whose overlap-pruned directory
         is still heavy (more than AND_PROBE_MIN_BLOCKS blocks), execute
         the intersection restricted to the blocks whose docid range starts
@@ -1325,7 +1352,8 @@ class ResidentEngine:
         whose score upper bound cannot reach the top-k (a WAND cursor's
         threshold tightening as the heap fills, queries.hpp:200-319).
         Returns per-row theta (-inf where the probe found fewer than k
-        results) or None when no row is heavy."""
+        results) or None when no row is heavy. The rows it probes add to
+        tally["probe_rows"] (_probe_theta)."""
         gk, sk, rb, rnb = dir0
         B = len(counts)
         H, P = self.AND_PROBE_MIN_BLOCKS, self.AND_PROBE_BLOCKS
@@ -1364,14 +1392,15 @@ class ResidentEngine:
         ns_of_os = np.cumsum(hspan) - 1
         pdir = (gk[mask], ns_of_os[sk[mask]], hmap[rb[mask]],
                 np.bincount(hmap[rb[mask]], minlength=len(hrows)).astype(np.int64))
-        theta_h = self._probe_theta(pdir, terms[hspan], qw[hspan], counts[hrows], k, tmax, "and")
+        theta_h = self._probe_theta(pdir, terms[hspan], qw[hspan], counts[hrows], k, tmax, "and",
+                                    tally)
         theta = np.full(B, -np.inf)
         theta[hrows] = theta_h
         return theta if np.any(np.isfinite(theta)) else None
 
     def _split_parts(self, full_dir, counts):
         """Split a batch into parts by the PRUNED per-query slot cost and
-        slice the batch-wide pruned directory for each part: yields
+        slice the batch-wide pruned directory for each part: a list of
         (q0, q1, (gblk_kept, span_kept_local, row_of_blk_local,
         row_nb_local)). Directory entries are row-major (spans are
         query-major and blocks span-major), so each part's slice is
@@ -1392,11 +1421,9 @@ class ResidentEngine:
         parts.append((cur0, B))
         sexcl = np.cumsum(counts) - counts
         bounds = np.searchsorted(row_of_blk, [q for q, _ in parts] + [B])
-        for (q0, q1), e0, e1 in zip(parts, bounds[:-1], bounds[1:]):
-            if q1 <= q0:
-                continue
-            yield q0, q1, (gblk_kept[e0:e1], span_kept[e0:e1] - sexcl[q0],
-                           row_of_blk[e0:e1] - q0, row_nb[q0:q1])
+        return [(q0, q1, (gblk_kept[e0:e1], span_kept[e0:e1] - sexcl[q0],
+                          row_of_blk[e0:e1] - q0, row_nb[q0:q1]))
+                for (q0, q1), e0, e1 in zip(parts, bounds[:-1], bounds[1:]) if q1 > q0]
 
     def _part_plan(self, terms, qw, counts, k, ops, tmax, qids, pruned_dir=None):
         """Layout for one part: group-major unique-tile ids + per-bucket
@@ -1418,6 +1445,7 @@ class ResidentEngine:
             groups, gtile_ids, tblk, sent_blk, nb_d = self._order_groups(
                 utidx, *self._docs_grouping())
             groups_f, gtile_f, blkperm = self._split_layout(utidx, tblk, nb_d)
+            tot_blk = int(self.tile_blocks[utidx].sum())
             if tot:
                 pos = np.searchsorted(utidx, tiles_kept)
                 local_blk = tblk[pos] + (gblk_kept - self.gblk0[tiles_kept])
@@ -1567,6 +1595,7 @@ class ResidentEngine:
             "buckets": plan_buckets,
             "pack_idx": pack_idx,
             "sent_dir": int(sent_blk << 5),
+            "decode_blocks": tot_blk,  # the blocks of the part's tiles
             "k": k,
             "ops": ops,
             "tmax": tmax,
@@ -1578,8 +1607,7 @@ class ResidentEngine:
         block skipping (and_skip), ops=("or",) WAND, prune="maxscore"
         with ops=("or",) MaxScore; it builds the block-max metadata on
         first use (_ensure_blockmax) and runs a probe sub-plan on the
-        device. A pruned plan carries plan["timings"] (seconds of each
-        prepare stage) and plan["probe_rows"] (rows the probe ran)."""
+        device. Every plan carries plan["counts"] (PLAN_COUNTS)."""
         bad_ops = set(ops) - {"counts", "or", "and"}
         if bad_ops:
             raise ValueError(
@@ -1592,14 +1620,10 @@ class ResidentEngine:
                 "prune requires ranked ops=('or',) (WAND/MaxScore) or "
                 "ops=('and',) (intersection block skipping)"
             )
-        timings = {}
-        t0 = time.perf_counter()
         if prune:
             self._ensure_blockmax()
-            timings["blockmax"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        terms, qw, counts = self._prep_terms(queries, ranked)
-        timings["parse"] = time.perf_counter() - t0
+        with span("ds2i.parse"):
+            terms, qw, counts = self._prep_terms(queries, ranked)
         qend = np.cumsum(counts)
         qstart = qend - counts
         tmax = _pow2_at_least(int(counts.max()) if len(counts) else 1, lo=2)
@@ -1613,56 +1637,60 @@ class ResidentEngine:
             )
         if prune:
             return self._prepare_pruned(terms, qw, counts, qstart, qend, k, tuple(ops), tmax,
-                                        prune, timings)
+                                        prune)
 
-        # part splitting by bucketed (unpruned) slot budget
-        qslots = np.zeros(len(queries), dtype=np.int64)
-        if len(terms):
+        with span("ds2i.split"):
+            # part splitting by bucketed (unpruned) slot budget
+            qslots = np.zeros(len(queries), dtype=np.int64)
             nb = self._term_blocks(terms)
-            np.add.at(qslots, np.repeat(np.arange(len(queries)), counts), nb * BLOCK)
-        qslots = np.maximum(2 ** np.ceil(np.log2(np.maximum(qslots, self.MIN_L))).astype(np.int64), self.MIN_L)
+            if len(terms):
+                np.add.at(qslots, np.repeat(np.arange(len(queries)), counts), nb * BLOCK)
+            qslots = np.maximum(
+                2 ** np.ceil(np.log2(np.maximum(qslots, self.MIN_L))).astype(np.int64), self.MIN_L)
 
-        parts = []
-        cur0, cur_slots = 0, 0
-        for qi in range(len(queries)):
-            if qi > cur0 and (
-                cur_slots + qslots[qi] > self.max_part_slots
-                or qi - cur0 >= self.max_part_queries
-            ):
-                parts.append((cur0, qi))
-                cur0, cur_slots = qi, 0
-            cur_slots += qslots[qi]
-        parts.append((cur0, len(queries)))
+            parts = []
+            cur0, cur_slots = 0, 0
+            for qi in range(len(queries)):
+                if qi > cur0 and (
+                    cur_slots + qslots[qi] > self.max_part_slots
+                    or qi - cur0 >= self.max_part_queries
+                ):
+                    parts.append((cur0, qi))
+                    cur0, cur_slots = qi, 0
+                cur_slots += qslots[qi]
+            parts.append((cur0, len(queries)))
 
         plans = []
         for q0, q1 in parts:
             if q1 <= q0:
                 continue
             s0, s1 = qstart[q0], qend[q1 - 1]
-            plans.append(
-                self._part_plan(
-                    terms[s0:s1], qw[s0:s1], counts[q0:q1], k, tuple(ops), tmax,
-                    qids=np.arange(q0, q1),
+            with span("ds2i.layout"):
+                plans.append(
+                    self._part_plan(
+                        terms[s0:s1], qw[s0:s1], counts[q0:q1], k, tuple(ops), tmax,
+                        qids=np.arange(q0, q1),
+                    )
                 )
-            )
-        return {"plans": plans, "n": len(queries), "k": k, "ops": tuple(ops)}
+        n_blocks = int(nb.sum())  # the exhaustive directory holds every block of every term
+        return _plan(plans, len(queries), k, tuple(ops), dir_blocks=n_blocks, dir_kept=n_blocks)
 
-    def _prepare_pruned(self, terms, qw, counts, qstart, qend, k, ops, tmax, prune, timings):
+    def _prepare_pruned(self, terms, qw, counts, qstart, qend, k, ops, tmax, prune):
         """prepare's pruned plan: the probe's thresholds, the batch's
         pruned directory computed once, then parts split by the slots
         that survive (_split_parts)."""
         B = len(counts)
         span_row = np.repeat(np.arange(B), counts)
         mode = "and" if ops == ("and",) else "or"
-        self._probe_rows = 0
-        dir0 = None
-        # the probe's thresholds are a function of the parsed batch, k,
-        # the mode and the probe's constants on this index: cache_dir
-        # replays them across restarts
-        theta_key = self._theta_key(terms, qw, counts, k, mode) if self.cache_dir else None
-        cached = (self._cache_load(theta_key, with_norms=True, names=("theta",))
-                  if theta_key else None)
-        t0 = time.perf_counter()
+        tally = {"probe_rows": 0}
+        dir0 = theta_key = cached = None
+        if self.cache_dir:
+            # the probe's thresholds are a function of the parsed batch, k,
+            # the mode and the probe's constants on this index: cache_dir
+            # replays them across restarts
+            with span("ds2i.theta_cache"):
+                theta_key = self._theta_key(terms, qw, counts, k, mode)
+                cached = self._cache_load(theta_key, with_norms=True, names=("theta",))
         if cached is not None:
             theta = cached["theta"]
             probe_theta = theta if np.any(np.isfinite(theta)) else None
@@ -1670,38 +1698,40 @@ class ResidentEngine:
             # phase 1: score only each term's top blocks by block max; the
             # per-query k-th best is a TRUE achieved partial score, a much
             # tighter threshold than the static single-term bound
-            pdir = self._pruned_directory(terms, qw, counts, k, span_row,
-                                          probe_rank=max(2, -(-2 * k // BLOCK)))
-            probe_theta = self._probe_theta(pdir, terms, qw, counts, k, tmax, "or")
+            with span("ds2i.probe"):
+                with span("ds2i.prune"):
+                    pdir = self._pruned_directory(terms, qw, counts, k, span_row,
+                                                  probe_rank=max(2, -(-2 * k // BLOCK)))
+                probe_theta = self._probe_theta(pdir, terms, qw, counts, k, tmax, "or", tally)
         else:
             # phase 1 for AND: overlap-prune, then the docid-prefix probe
             # on the still-heavy rows (_and_prefix_probe)
-            dir0 = self._pruned_directory(terms, qw, counts, k, span_row, mode="and")
-            timings["dir0"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            probe_theta = self._and_prefix_probe(dir0, terms, qw, counts, k, tmax)
+            with span("ds2i.prune"):
+                dir0 = self._pruned_directory(terms, qw, counts, k, span_row, mode="and")
+            with span("ds2i.probe"):
+                probe_theta = self._and_prefix_probe(dir0, terms, qw, counts, k, tmax, tally)
         if theta_key is not None and cached is None:
-            self._cache_save(theta_key, with_norms=True,
-                             theta=probe_theta if probe_theta is not None else np.full(B, -np.inf))
-        timings["probe"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
+            with span("ds2i.theta_cache"):
+                self._cache_save(theta_key, with_norms=True,
+                                 theta=probe_theta if probe_theta is not None
+                                 else np.full(B, -np.inf))
         if mode == "and" and probe_theta is None and dir0 is not None:
             full_dir = dir0  # no heavy rows: the phase-1 directory is final
         else:
-            full_dir = self._pruned_directory(terms, qw, counts, k, span_row,
-                                              theta_override=probe_theta, mode=mode,
-                                              essential=(prune == "maxscore"))
-        timings["directory"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        plans = [
-            self._part_plan(terms[qstart[q0]:qend[q1 - 1]], qw[qstart[q0]:qend[q1 - 1]],
-                            counts[q0:q1], k, ops, tmax, qids=np.arange(q0, q1),
-                            pruned_dir=pd)
-            for q0, q1, pd in self._split_parts(full_dir, counts)
-        ]
-        timings["part_plans"] = time.perf_counter() - t0
-        return {"plans": plans, "n": B, "k": k, "ops": ops, "timings": timings,
-                "probe_rows": self._probe_rows}
+            with span("ds2i.prune"):
+                full_dir = self._pruned_directory(terms, qw, counts, k, span_row,
+                                                  theta_override=probe_theta, mode=mode,
+                                                  essential=(prune == "maxscore"))
+        with span("ds2i.split"):
+            parts = self._split_parts(full_dir, counts)
+        plans = []
+        for q0, q1, pd in parts:
+            with span("ds2i.layout"):
+                plans.append(self._part_plan(
+                    terms[qstart[q0]:qend[q1 - 1]], qw[qstart[q0]:qend[q1 - 1]], counts[q0:q1],
+                    k, ops, tmax, qids=np.arange(q0, q1), pruned_dir=pd))
+        return _plan(plans, B, k, ops, dir_blocks=int(self._term_blocks(terms).sum()),
+                     dir_kept=len(full_dir[0]), probe_rows=tally["probe_rows"])
 
     def _theta_key(self, terms, qw, counts, k, mode):
         """The cache piece of a pruned batch's probe thresholds: the parsed
@@ -1731,59 +1761,65 @@ class ResidentEngine:
             self._ensure_norm_cache()
         replicas = self._replicas or [self.state]
         pending = []
+        uploaded = 0
         for pi, p in enumerate(plan["plans"]):
             state = replicas[pi % len(replicas)]
             dev = state.device
             with _on(dev):
                 cache = p.setdefault("_dev", {})
                 if dev not in cache:
-                    cache[dev] = tuple(
-                        torch.from_numpy(p[name].astype(np.int64)).to(dev, non_blocking=True)
-                        for name in ("gtile_ids", "gtile_f", "blkperm"))
-                    p["layout"].upload(dev)
-                    p["join"].upload(dev)
+                    with span("ds2i.upload"):
+                        cache[dev] = tuple(
+                            torch.from_numpy(p[name].astype(np.int64)).to(dev, non_blocking=True)
+                            for name in ("gtile_ids", "gtile_f", "blkperm"))
+                        uploaded += (sum(t.nbytes for t in cache[dev]) + p["layout"].upload(dev)
+                                     + p["join"].upload(dev))
                 d_gt, d_gf, d_bp = cache[dev]
                 fetch16 = "counts" not in p["ops"] and p["fscale"] is not None
                 out = _resident_step(
                     state, d_gt, d_gf, d_bp, p["layout"], p["join"], num_docs=self.num_docs,
                     fetch16=fetch16, fscale=p["fscale"] if fetch16 else None,
                 )
-                if out.is_cuda:
-                    # the download starts as soon as this part's compute
-                    # ends (on its device's stream), overlapping later
-                    # parts' compute
-                    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-                    host.copy_(out, non_blocking=True)
-                    out = host
+                with span("ds2i.download"):
+                    if out.is_cuda:
+                        # the download starts as soon as this part's compute
+                        # ends (on its device's stream), overlapping later
+                        # parts' compute
+                        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                        host.copy_(out, non_blocking=True)
+                        out = host
             pending.append((p, out))
+        plan["counts"]["upload_bytes"] += uploaded
         return pending
 
     def collect(self, plan, pending):
         """Wait for a dispatch() on every replica's device and unpack its
         results."""
-        for dev in dict.fromkeys(r.device for r in (self._replicas or [self.state])):
-            if dev.type == "cuda":
-                torch.cuda.current_stream(dev).synchronize()
+        with span("ds2i.wait"):
+            for dev in dict.fromkeys(r.device for r in (self._replicas or [self.state])):
+                if dev.type == "cuda":
+                    torch.cuda.current_stream(dev).synchronize()
         results = [None] * plan["n"]
-        for p, out in pending:
-            packed = out.numpy()
-            if packed.dtype == np.float16:
-                packed = packed.astype(np.float32) / np.float32(p["fscale"])
-            ops = p["ops"]
-            off = 0
-            c0 = 2 if "counts" in ops else 0
-            c_or = c0 + (p["k"] if "or" in ops else 0)
-            for b in p["buckets"]:
-                rows = packed[off: off + len(b["rows"])]
-                off += len(b["rows"])
-                for local, qi in enumerate(b["rows"]):
-                    r = rows[local]
-                    results[qi] = (
-                        int(r[0]) if c0 else 0,
-                        int(r[1]) if c0 else 0,
-                        r[c0:c_or] if "or" in ops else None,
-                        r[c_or: c_or + p["k"]] if "and" in ops else None,
-                    )
+        with span("ds2i.unpack"):
+            for p, out in pending:
+                packed = out.numpy()
+                if packed.dtype == np.float16:
+                    packed = packed.astype(np.float32) / np.float32(p["fscale"])
+                ops = p["ops"]
+                off = 0
+                c0 = 2 if "counts" in ops else 0
+                c_or = c0 + (p["k"] if "or" in ops else 0)
+                for b in p["buckets"]:
+                    rows = packed[off: off + len(b["rows"])]
+                    off += len(b["rows"])
+                    for local, qi in enumerate(b["rows"]):
+                        r = rows[local]
+                        results[qi] = (
+                            int(r[0]) if c0 else 0,
+                            int(r[1]) if c0 else 0,
+                            r[c0:c_or] if "or" in ops else None,
+                            r[c_or: c_or + p["k"]] if "and" in ops else None,
+                        )
         return results
 
     def run(self, queries, k=10, ops=("or", "and"), ranked=True, prune=False):

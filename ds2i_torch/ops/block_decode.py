@@ -553,10 +553,13 @@ class PartLayout:
 
     def upload(self, device):
         """Every non-empty CTA table to `device` (once; later calls find
-        them)."""
+        them). Returns the bytes this call copied."""
+        nbytes = 0
         for (kernel, is_docs), host in self.tables.items():
-            if len(host):
+            if len(host) and (kernel, is_docs, str(device)) not in self._launches:
                 self.launch(kernel, is_docs, device)
+                nbytes += host.nbytes
+        return nbytes
 
     def launch(self, kernel, is_docs, device):
         key = (kernel, is_docs, str(device))

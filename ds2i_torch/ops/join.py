@@ -240,9 +240,14 @@ class JoinLayout:
 
     def upload(self, device):
         """The tables of the form `device` runs (CPU: plain, else the
-        kernel's) to `device`, once."""
+        kernel's) to `device`, once. Returns the bytes this call
+        copied."""
         device = torch.device(device)
-        return self.plain(device) if device.type == "cpu" else self.tables(device)
+        plain = device.type == "cpu"
+        if ("plain" if plain else "kernel", str(device)) in self._dev:
+            return 0
+        tabs = self.plain(device) if plain else self.tables(device)
+        return sum(t.nbytes for x in tabs for t in (x if isinstance(x, tuple) else (x,)))
 
     def plain(self, device):
         """(bucket_dir, bucket_qwtab, bucket_tgt, pack_idx) on `device`:

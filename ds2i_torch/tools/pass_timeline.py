@@ -7,15 +7,14 @@ block_mixed (rebuild_mixed over block_optpfor, as chip_smoke.py builds
 it); an engine on the card with its block-max metadata from the
 collection, and two plans of top-10 ranked_and over the whole log:
 exhaustive and and_skip (prune=True). Per plan: 2 warmup passes and 9
-timed passes (host clock around execute, median µs/query); then, with
-record_function spans wrapped around each stage, one more warmup pass
-and one pass under torch.profiler (CPU and CUDA activities). Stages:
-"decode" (_decode_part), "pack" (_pack_rows, where the tree has a pack
-of its own), "join" (the rest of a part's step, _resident_step: the
-plain join's ops, or K3, which packs too) and "collect". From the
-exported chrome trace: the kernels launched in the pass, the device's
-busy time (the union of its kernel and copy intervals) and idle share of
-the pass's host span, per stage the host time and the device time of the
+timed passes (host clock around execute, median µs/query); then one more
+warmup pass and one pass under torch.profiler (CPU and CUDA
+activities), whose stages are the engine's own spans (utils/trace.py):
+"ds2i.decode" (a part's decode launches), "ds2i.join" (K3, which packs
+too) and "ds2i.unpack" (collect's per-query unpack). From the exported
+chrome trace: the kernels launched in the pass, the device's busy time
+(the union of its kernel and copy intervals) and idle share of the
+pass's host span, per stage the host time and the device time of the
 kernels and copies it launched (a copy launched outside every stage is
 the download), and each kernel's device time by name. One JSON line per
 plan; the traces go to --out (default build/pass_timeline).
@@ -23,8 +22,9 @@ plan; the traces go to --out (default build/pass_timeline).
     python3 ds2i_torch/tools/pass_timeline.py [--root DIR] [--index NAME] [--out DIR] [--tag NAME]
 
 --root: the checkout whose ds2i_torch is profiled (default: the one
-holding this script), so one copy of the script times an older tree
-unpacked beside it. Exits 1 without a CUDA card.
+holding this script); the tree must mark its stages with the ds2i.*
+spans, and an older tree is timed with its own copy of this script.
+Exits 1 without a CUDA card.
 """
 
 import argparse
@@ -36,28 +36,8 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-STAGES = ("decode", "join", "pack", "collect")
+STAGES = ("ds2i.decode", "ds2i.join", "ds2i.unpack")
 PASSES = 9
-
-
-def _instrument(resident, torch):
-    """Wrap each stage of the engine's pass in a record_function span: a
-    part's whole step ("join": what it runs besides the decode and the
-    pack), its decode, the pack where the tree has a pack of its own, and
-    collect."""
-    rf = torch.profiler.record_function
-
-    def span(name, fn):
-        def wrapped(*a, **k):
-            with rf(name):
-                return fn(*a, **k)
-        return wrapped
-
-    resident._resident_step = span("join", resident._resident_step)
-    resident._decode_part = span("decode", resident._decode_part)
-    if hasattr(resident, "_pack_rows"):  # the plain pack of an older tree
-        resident._pack_rows = span("pack", resident._pack_rows)
-    resident.ResidentEngine.collect = span("collect", resident.ResidentEngine.collect)
 
 
 def _union(intervals):
@@ -98,7 +78,6 @@ def analyse(trace_path):
         stage_n[name] += e.get("cat") == "kernel"
     busy = _union([(e["ts"], e["ts"] + e["dur"]) for e in device])
     host = {name: sum(x - s for s, x, n in spans if n == name) for name in STAGES}
-    host["join"] -= host["decode"] + host["pack"]  # the step's spans hold both
     return {
         "pass_us": p1 - p0,
         "kernels": sum(e.get("cat") == "kernel" for e in device),
@@ -133,7 +112,7 @@ def main():
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
 
-    from ds2i_torch.engine import ResidentEngine, resident
+    from ds2i_torch.engine import ResidentEngine
     from ds2i_torch.host import (
         BinaryFreqCollection, GlobalParameters, WandData, generate_collection, make_index_type,
         mixed_choices, read_queries, read_sizes, rebuild_mixed,
@@ -173,7 +152,6 @@ def main():
             t = time.perf_counter()
             eng.execute(plan)
             times[name].append((time.perf_counter() - t) / len(queries) * 1e6)
-    _instrument(resident, torch)
     os.makedirs(args.out, exist_ok=True)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for name, plan in plans.items():

@@ -837,7 +837,7 @@ def test_engine_cache_round_trip_on_cuda(cuda, coll, name, tmp_path):
     second._ensure_norm_cache()
     second.build_blockmax(c)
     plan = second.prepare(queries, k=10, ops=("and",), prune=True)
-    assert plan["probe_rows"] == 0  # the thresholds came from the cache
+    assert plan["counts"]["probe_rows"] == 0  # the thresholds came from the cache
     assert blockmax.blockmax_rows.launches == k5
     assert sum(w.launches for w in (decode_pair, *WRAPPERS.values())) == dec
     got = (second.collect(plan, second.dispatch(plan)), second.wand(queries, k=10))

@@ -126,9 +126,10 @@ def test_cached_state_equals_cold_engine(built, tmp_path, name):
     span_row = np.repeat(np.arange(len(counts)), counts)
     tmax = max(2, 1 << (int(counts.max()) - 1).bit_length())
     pdir = cold._pruned_directory(terms, qw, counts, 10, span_row, probe_rank=2)
-    theta_or = cold._probe_theta(pdir, terms, qw, counts, 10, tmax, "or")
+    tally = {"probe_rows": 0}
+    theta_or = cold._probe_theta(pdir, terms, qw, counts, 10, tmax, "or", tally)
     dir0 = cold._pruned_directory(terms, qw, counts, 10, span_row, mode="and")
-    theta_and = cold._and_prefix_probe(dir0, terms, qw, counts, 10, tmax)
+    theta_and = cold._and_prefix_probe(dir0, terms, qw, counts, 10, tmax, tally)
     if theta_and is None:
         theta_and = np.full(len(counts), -np.inf)
     for mode, exp in (("or", theta_or), ("and", theta_and)):

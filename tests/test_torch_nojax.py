@@ -54,6 +54,7 @@ _SCRIPT = textwrap.dedent("""
     import ds2i_torch.ops.join
     import ds2i_torch.ops.pair_decode
     import ds2i_torch.tools.pass_timeline
+    import ds2i_torch.utils.trace
     import ds2i_torch.tools.kernel_turns
     import ds2i_torch.index.verify
     import ds2i_torch.tools.create_freq_index
@@ -186,7 +187,7 @@ def test_port_imports_and_serves_without_jax(tmp_path):
     "ds2i_torch.tools.optimal_hybrid_index", "ds2i_torch.ops.decode",
     "ds2i_torch.engine.device_index", "ds2i_torch.engine.executor",
     "ds2i_torch.engine.flat_executor", "ds2i_torch.engine.tile_executor",
-    "ds2i_torch.parallel.sharded_engine",
+    "ds2i_torch.parallel.sharded_engine", "ds2i_torch.utils.trace",
 ])
 def test_module_imports_first(tmp_path, module):
     """chip_smoke.py imports ds2i_torch.kernels, then ds2i_torch.ops: each

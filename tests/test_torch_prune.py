@@ -116,8 +116,11 @@ def test_and_prefix_probe_matches_jax(skewed):
     terms, qw, counts, span_row, tmax = _batch(port, d.qs)
     dir0 = port._pruned_directory(terms, qw, counts, 10, span_row, mode="and")
     assert np.any(dir0[3] > port.AND_PROBE_MIN_BLOCKS)
-    got = port._and_prefix_probe(dir0, terms, qw, counts, 10, tmax)
+    tally = {"probe_rows": 0}
+    got = port._and_prefix_probe(dir0, terms, qw, counts, 10, tmax, tally)
     exp = ref._and_prefix_probe(dir0, terms, qw, counts, 10, tmax)
+    # the probe ran the heavy rows
+    assert 0 < tally["probe_rows"] <= int(np.sum(dir0[3] > port.AND_PROBE_MIN_BLOCKS))
     assert got is not None and exp is not None
     assert np.array_equal(np.isfinite(got), np.isfinite(exp))
     assert np.isfinite(got).sum() >= 1
@@ -133,8 +136,12 @@ def test_prepare_plan_arrays_match_jax(skewed, ops):
     got = port.prepare(d.qs, k=10, ops=ops, prune=True)
     exp = ref.prepare(d.qs, k=10, ops=ops, prune=True)
     assert _plan_arrays(got) == _plan_arrays(exp)
-    assert got["probe_rows"] > 0
-    assert {"blockmax", "parse", "probe", "directory", "part_plans"} <= set(got["timings"])
+    c = got["counts"]
+    assert c["probe_rows"] > 0
+    # the plan's counts: pruning kept some of the terms' blocks, the parts
+    # decode them, and nothing is uploaded before dispatch
+    assert 0 < c["dir_kept"] < c["dir_blocks"] == int(port._term_blocks(_batch(port, d.qs)[0]).sum())
+    assert c["decode_blocks"] > 0 and c["upload_bytes"] == 0
 
 
 @pytest.mark.parametrize("tname", ["ef", "opt", "block_optpfor", "block_interpolative"])
@@ -149,7 +156,7 @@ def test_ranked_and_prune_matches_exhaustive_and_jax(tname):
     ref.build_blockmax(d.lists)
     terms, qw, counts, span_row, tmax = _batch(port, d.qs)
     dir0 = port._pruned_directory(terms, qw, counts, 10, span_row, mode="and")
-    theta = port._and_prefix_probe(dir0, terms, qw, counts, 10, tmax)
+    theta = port._and_prefix_probe(dir0, terms, qw, counts, 10, tmax, {"probe_rows": 0})
     assert theta is not None and np.isfinite(theta).any()
     pruned = port.ranked_and(d.qs, k=10, prune=True)
     _assert_topk_close(pruned, port.ranked_and(d.qs, k=10), d.qs)
