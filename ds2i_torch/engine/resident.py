@@ -103,10 +103,12 @@ RESIDENT_WORD_LIMIT = 2**31
 # a plan's counters (plan["counts"]), from host arrays the planner holds
 # (none reads the device): the blocks of the batch's query terms before
 # any pruning, the final directory's entries, the rows the probe's
-# sub-plan ran, the blocks the part layouts decode, and the bytes
-# dispatch copies to the device for the plan. The probe's sub-plan keeps
-# counts of its own.
-PLAN_COUNTS = ("dir_blocks", "dir_kept", "probe_rows", "decode_blocks", "upload_bytes")
+# sub-plan ran, the rows whose final AND directory was recomputed with
+# the probe's threshold (_refine_and_directory), the blocks the part
+# layouts decode, and the bytes dispatch copies to the device for the
+# plan. The probe's sub-plan keeps counts of its own.
+PLAN_COUNTS = ("dir_blocks", "dir_kept", "probe_rows", "refined_rows", "decode_blocks",
+               "upload_bytes")
 
 
 def _plan(plans, n, k, ops, **counts):
@@ -1677,8 +1679,9 @@ class ResidentEngine:
 
     def _prepare_pruned(self, terms, qw, counts, qstart, qend, k, ops, tmax, prune):
         """prepare's pruned plan: the probe's thresholds, the batch's
-        pruned directory computed once, then parts split by the slots
-        that survive (_split_parts)."""
+        pruned directory (AND: the overlap-pruned one, its thresholded
+        rows recomputed), then parts split by the slots that survive
+        (_split_parts)."""
         B = len(counts)
         span_row = np.repeat(np.arange(B), counts)
         mode = "and" if ops == ("and",) else "or"
@@ -1715,8 +1718,15 @@ class ResidentEngine:
                 self._cache_save(theta_key, with_norms=True,
                                  theta=probe_theta if probe_theta is not None
                                  else np.full(B, -np.inf))
-        if mode == "and" and probe_theta is None and dir0 is not None:
-            full_dir = dir0  # no heavy rows: the phase-1 directory is final
+        refined = 0
+        if dir0 is not None:
+            # phase 2 for AND: the phase-1 directory with the thresholded
+            # rows recomputed (all of it is final when no row is heavy)
+            full_dir = dir0
+            if probe_theta is not None:
+                with span("ds2i.prune"):
+                    full_dir, refined = self._refine_and_directory(dir0, terms, qw, counts, k,
+                                                                   probe_theta)
         else:
             with span("ds2i.prune"):
                 full_dir = self._pruned_directory(terms, qw, counts, k, span_row,
@@ -1731,7 +1741,44 @@ class ResidentEngine:
                     terms[qstart[q0]:qend[q1 - 1]], qw[qstart[q0]:qend[q1 - 1]], counts[q0:q1],
                     k, ops, tmax, qids=np.arange(q0, q1), pruned_dir=pd))
         return _plan(plans, B, k, ops, dir_blocks=int(self._term_blocks(terms).sum()),
-                     dir_kept=len(full_dir[0]), probe_rows=tally["probe_rows"])
+                     dir_kept=len(full_dir[0]), probe_rows=tally["probe_rows"],
+                     refined_rows=refined)
+
+    def _refine_and_directory(self, dir0, terms, qw, counts, k, theta):
+        """The final AND directory from the overlap-pruned one (dir0,
+        row-major) and the probe's per-row theta: _pruned_directory with
+        theta_override over the sub-batch of the rows with a finite theta,
+        spliced into dir0 in place of those rows' entries. The other rows
+        keep dir0's entries, which the call over the whole batch would
+        give them again: a row's pairs and fixpoint see only its own
+        spans, the score test only rows with a threshold, and the fixpoint
+        stops each row where it converges or at AND_FIXPOINT_ROUNDS in
+        both calls. Returns (directory, the number of rows recomputed)."""
+        gk, sk, rb, rnb = dir0
+        B = len(counts)
+        rows = np.nonzero(np.isfinite(theta))[0]
+        in_sub = np.zeros(B, dtype=bool)
+        in_sub[rows] = True
+        spans = np.nonzero(np.repeat(in_sub, counts))[0]  # the sub-batch's spans, row-major
+        sub_counts = counts[rows]
+        g, s, r, nb = self._pruned_directory(
+            terms[spans], qw[spans], sub_counts, k,
+            np.repeat(np.arange(len(rows)), sub_counts), theta_override=theta[rows], mode="and")
+        row_nb = rnb.copy()
+        row_nb[rows] = nb
+        # each entry's place: its row's start in the result plus its rank
+        # within the row, which both inputs keep in order
+        start = np.cumsum(row_nb) - row_nb
+        old = np.nonzero(~in_sub[rb])[0]
+        pos_old = start[rb[old]] + old - (np.cumsum(rnb) - rnb)[rb[old]]
+        pos_new = start[rows[r]] + np.arange(len(g)) - (np.cumsum(nb) - nb)[r]
+        out = []
+        for a, b in ((gk, g), (sk, spans[s]), (rb, rows[r])):
+            o = np.empty(int(row_nb.sum()), dtype=a.dtype)
+            o[pos_old] = a[old]
+            o[pos_new] = b
+            out.append(o)
+        return (*out, row_nb), len(rows)
 
     def _theta_key(self, terms, qw, counts, k, mode):
         """The cache piece of a pruned batch's probe thresholds: the parsed

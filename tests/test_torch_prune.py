@@ -3,7 +3,9 @@ _pruned_directory, _and_prefix_probe, prepare(prune=...), ranked_and
 (prune=True), wand, maxscore; device="cpu", the plain PyTorch path)
 against the JAX engine's and against the port's exhaustive ops, on the
 zipf-skewed lists of tests/test_torch_blockmax.py: directories exactly
-when both engines are given the same threshold, probe thresholds within
+when both engines are given the same threshold (the final AND
+directory's row-restricted form, _refine_and_directory, exactly as the
+port's call over the whole batch), probe thresholds within
 rtol 1e-6, plan arrays exactly, pruned top-k results equal to the
 exhaustive ones (equal lengths, scores within rtol 1e-3)."""
 
@@ -126,6 +128,57 @@ def test_and_prefix_probe_matches_jax(skewed):
     assert np.isfinite(got).sum() >= 1
     fin = np.isfinite(got)
     np.testing.assert_allclose(got[fin], exp[fin], rtol=1e-6)
+
+
+@pytest.mark.parametrize("rounds", ["engine", 1])
+def test_refined_and_directory_equals_the_full_call(skewed, monkeypatch, rounds):
+    """The final AND directory from dir0 with only the rows of a finite
+    theta recomputed (_refine_and_directory) equals _pruned_directory
+    with that theta over the whole batch, array by array: the probe's
+    thresholds, each third row's median entry bound, and one row's;
+    with the engine's fixpoint rounds and with one, which cuts the
+    fixpoint of some rows, thresholded ones among them. The batch is the fixture's
+    queries and 1,000 seeded ones over its terms. An all -inf theta
+    recomputes no row and gives dir0 back, as the full call does."""
+    d, port, _ = skewed
+    rng = np.random.RandomState(5)
+    qs = list(d.qs) + [list(rng.choice(len(d.lists), size=rng.randint(2, 6), replace=False))
+                       for _ in range(1000)]
+    terms, qw, counts, span_row, tmax = _batch(port, qs)
+    dir0 = port._pruned_directory(terms, qw, counts, 10, span_row, mode="and")
+    ub = port._entry_score_ub(np.clip(terms, 0, None), qw, terms < 0, counts, span_row, dir0[1],
+                              dir0[0])
+    every_third = np.full(len(counts), -np.inf)
+    for r in np.nonzero(dir0[3])[0][::3]:
+        every_third[r] = np.median(ub[dir0[2] == r])
+    one_row = np.full(len(counts), -np.inf)
+    heavy = int(np.argmax(dir0[3]))
+    one_row[heavy] = np.median(ub[dir0[2] == heavy])
+    full = port._pruned_directory(terms, qw, counts, 10, span_row, theta_override=every_third,
+                                  mode="and")
+    if rounds == 1:
+        monkeypatch.setattr(port, "AND_FIXPOINT_ROUNDS", 1)
+        dir0 = port._pruned_directory(terms, qw, counts, 10, span_row, mode="and")
+        capped = port._pruned_directory(terms, qw, counts, 10, span_row,
+                                        theta_override=every_third, mode="and")
+        cut = np.nonzero(capped[3] != full[3])[0]
+        assert np.isfinite(every_third[cut]).any()  # a thresholded row stops short
+    probe = port._and_prefix_probe(dir0, terms, qw, counts, 10, tmax, {"probe_rows": 0})
+    assert probe is not None and 0 < np.isfinite(probe).sum() < len(counts)
+    for theta in (probe, every_third, one_row):
+        got, refined = port._refine_and_directory(dir0, terms, qw, counts, 10, theta)
+        exp = port._pruned_directory(terms, qw, counts, 10, span_row, theta_override=theta,
+                                     mode="and")
+        _assert_dirs_equal(got, exp)
+        assert refined == np.isfinite(theta).sum()
+        if theta is not probe:
+            assert len(got[0]) < len(dir0[0])  # the thresholds drop blocks
+    none = np.full(len(counts), -np.inf)
+    got, refined = port._refine_and_directory(dir0, terms, qw, counts, 10, none)
+    assert refined == 0
+    _assert_dirs_equal(got, dir0)
+    _assert_dirs_equal(port._pruned_directory(terms, qw, counts, 10, span_row,
+                                              theta_override=none, mode="and"), dir0)
 
 
 @pytest.mark.parametrize("ops", [("and",), ("or",)])

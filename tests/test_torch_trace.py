@@ -112,7 +112,8 @@ def test_plan_counts_equal_an_independent_count(built, tname, prune):
     eng = _engine(built, tname)
     plan = eng.prepare(QUERIES, k=10, ops=("and",), prune=prune)
     c = plan["counts"]
-    assert set(c) == {"dir_blocks", "dir_kept", "probe_rows", "decode_blocks", "upload_bytes"}
+    assert set(c) == {"dir_blocks", "dir_kept", "probe_rows", "refined_rows", "decode_blocks",
+                      "upload_bytes"}
     # every block of each query's distinct terms
     assert c["dir_blocks"] == sum(int(eng.list_blocks[t]) for q in QUERIES for t in set(q))
     # the final directory: the join's real entries over the parts
@@ -123,8 +124,12 @@ def test_plan_counts_equal_an_independent_count(built, tname, prune):
         dir0 = eng._pruned_directory(terms, qw, counts, 10, np.repeat(np.arange(len(counts)),
                                                                        counts), mode="and")
         assert c["probe_rows"] == int(np.sum(dir0[3] > eng.AND_PROBE_MIN_BLOCKS)) > 0
+        # the final directory recomputed the rows the probe gave a threshold
+        tmax = max(2, 1 << (int(counts.max()) - 1).bit_length())
+        theta = eng._and_prefix_probe(dir0, terms, qw, counts, 10, tmax, {"probe_rows": 0})
+        assert c["refined_rows"] == int(np.isfinite(theta).sum()) > 0
     else:
-        assert c["dir_kept"] == c["dir_blocks"] and c["probe_rows"] == 0
+        assert c["dir_kept"] == c["dir_blocks"] and c["probe_rows"] == c["refined_rows"] == 0
     # the blocks of each part's tiles (pad rows left out)
     assert c["decode_blocks"] == sum(
         int(eng.tile_blocks[g[g != eng.pad_tile]].sum())
