@@ -1,6 +1,7 @@
 """The control of the comparison that decides `correct`: the plain
 reference computed in bfloat16, the precision below the float32 the
-configurations state, put in the program's place. `--precision f16`
+configurations state, put in the program's place (its ranked_and or
+ranked_or, as the cell's traffic is judged: run.JUDGED). `--precision f16`
 reads the reference computed in float16 the same way.
 
 For a cell and each seed it draws the window's stream and sample as a
@@ -33,18 +34,19 @@ def reading(name, seed, n_queries, root=run.ROOT, precision="bf16"):
     """The judged numbers of the reference's answers in `precision` (a
     name in reference.PRECISIONS) on the sample a run of `name` with
     `seed` would compare after answering n_queries queries."""
-    _, _, cfg, traffic, _ = run.resolve(name, False, root)
+    cell, _, cfg, traffic, _ = run.resolve(name, False, root)
+    method = run.judged_by(cell, traffic)[1]
     coll = corpus.Collection(os.path.join(deploy.build_dir(root, cfg), "coll"))
-    exact = reference.Reference(coll, cfg["bm25_k1"], cfg["bm25_b"])
-    low = reference.Reference(coll, cfg["bm25_k1"], cfg["bm25_b"], precision)
+    exact = getattr(reference.Reference(coll, cfg["bm25_k1"], cfg["bm25_b"]), method)
+    low = getattr(reference.Reference(coll, cfg["bm25_k1"], cfg["bm25_b"], precision), method)
     stream = stream_mod.Stream(coll.lens, seed, *stream_mod.law(traffic))
     sampler = run.Sampler(run.RESERVOIR, run.HEAVIEST)
     k, B = cfg["k"], traffic["batch"]
     for pos in range(0, n_queries, B):
         qs, work, u = stream.batch(pos, B)
-        sampler.add(pos, qs, work, u, lambda i: low.ranked_and(qs[i], k))
+        sampler.add(pos, qs, work, u, lambda i: low(qs[i], k))
     sample = sampler.picks()
-    numbers = reference.judge([g for _, g in sample], [exact.ranked_and(t, k) for t, _ in sample])
+    numbers = reference.judge([g for _, g in sample], [exact(t, k) for t, _ in sample])
     return numbers, len(sample)
 
 

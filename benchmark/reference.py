@@ -1,4 +1,5 @@
-"""The plain reference: top-k BM25 ranked AND over the generated postings.
+"""The plain reference: top-k BM25 ranked AND and ranked OR over the
+generated postings.
 
 It reads the collection's raw files (`corpus.Collection`) and nothing
 that the program derived: no index, no wand data, no plan. BM25 is
@@ -8,6 +9,9 @@ float32 throughout. A query's lists are intersected, each surviving
 document scored as the sum of qw * f / (f + k1 * (1 - b + b * norm))
 over the lists in increasing length (ds2i's ranked_and_query), and the
 k largest scores returned in decreasing order (ds2i keeps no docids).
+Ranked OR scores every document of the lists' union the same way, each
+over the lists that hold it (ds2i's ranked_or_query): what WAND and
+MaxScore return too.
 
 `rnd` rounds the result of every operation: float32 for the reference,
 `bf16` for the control, the same arithmetic a precision below the one
@@ -65,14 +69,20 @@ class Reference:
         return self.rnd(rnd(rnd(_F32(mult) * np.maximum(_F32(1e-6), idf))
                             * rnd(_F32(1.0) + self.k1_w)))
 
-    def ranked_and(self, terms, k):
-        rnd = self.rnd
+    def _lists(self, terms):
+        """(docs, freqs, query weight) of each distinct term, a repeated
+        term weighted by its count, in increasing list length."""
         uniq, mult = np.unique(np.asarray(terms, dtype=np.int64), return_counts=True)
         lists = []
         for t, m in zip(uniq.tolist(), mult.tolist()):
             docs, freqs = self.coll.list(t)
             lists.append((docs, freqs, self.query_weight(m, len(docs))))
         lists.sort(key=lambda x: len(x[0]))
+        return lists
+
+    def ranked_and(self, terms, k):
+        rnd = self.rnd
+        lists = self._lists(terms)
         inter = np.asarray(lists[0][0])
         for docs, _, _ in lists[1:]:
             inter = np.intersect1d(inter, docs, assume_unique=True)
@@ -85,6 +95,24 @@ class Reference:
             w = rnd(f / rnd(f + den))
             score = rnd(score + rnd(qw * w))
         return np.sort(score)[::-1][:k]
+
+    def ranked_or(self, terms, k):
+        """Top-k ranked OR (ds2i's ranked_or_query): every document of the
+        union scored as the sum of qw * f / (f + den) over the lists that
+        hold it, added in increasing list length as ranked_and adds them,
+        and the k largest scores in decreasing order."""
+        rnd = self.rnd
+        lists = self._lists(terms)
+        union = np.unique(np.concatenate([docs for docs, _, _ in lists]))
+        score = np.zeros(len(union), dtype=_F32)
+        for docs, freqs, qw in lists:
+            at = np.searchsorted(union, docs)
+            f = np.asarray(freqs, dtype=_F32)
+            w = rnd(f / rnd(f + self.den[np.asarray(docs, dtype=np.int64)]))
+            score[at] = rnd(score[at] + rnd(qw * w))
+        if len(score) > k:
+            score = np.partition(score, len(score) - k)[len(score) - k:]
+        return np.sort(score)[::-1]
 
 
 # The limits, each between the program's largest reading and the

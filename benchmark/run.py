@@ -31,7 +31,10 @@ metric is left out.
 After the window the engine is freed and a sample of the answers drawn
 from the seed (a reservoir over every answered query, and the heaviest
 queries) is compared with the plain reference (reference.py), which
-decides `correct`. The numbers compared and their limits end standard
+decides `correct`: ranked AND answers against `Reference.ranked_and`,
+ranked OR answers (WAND, with the mix's `prune`) against
+`Reference.ranked_or`. A mix whose `ops` neither judges exits before
+the cell is built. The numbers compared and their limits end standard
 error and the result line, which is the last line of standard output.
 
 Exits 2 without a CUDA card (or with fewer than the cell asks for), and
@@ -64,6 +67,10 @@ BANNED = frozenset({"jax", "jaxlib", "flax", "ds2i_tpu"})
 RESERVOIR, HEAVIEST = 1500, 100
 # the window's queries drawn in set-up: the warm-up's pace times this
 PREFETCH_MARGIN = 1.25
+# a traffic mix's ops: (the slot of ResidentEngine.collect's result tuple
+# that holds a query's top-k scores, the reference.Reference method that
+# answers the same query)
+JUDGED = {("and",): (3, "ranked_and"), ("or",): (2, "ranked_or")}
 
 
 def process_start():
@@ -221,6 +228,16 @@ def resolve(name, trace, root=ROOT):
     return cell, cfg_entry["file"], cfg, traffic, metrics
 
 
+def judged_by(cell, traffic):
+    """(answer slot, reference method) of a cell's traffic mix (JUDGED);
+    exits naming the traffic file where its ops cannot be judged."""
+    got = JUDGED.get(tuple(traffic["ops"]))
+    if got is None:
+        raise SystemExit(f"run.py: traffic/{cell['traffic']}.json: ops {traffic['ops']!r} "
+                         f"cannot be judged; the reference answers {[list(o) for o in JUDGED]}")
+    return got
+
+
 def run_cell(name, seed, seconds, trace, device="cuda", root=ROOT, log=None, engine_hook=None):
     """One run of cell `name` of the checkout at `root`; returns (result
     dict, checks), or (None, None) when the window loaded a banned
@@ -237,6 +254,7 @@ def run_cell(name, seed, seconds, trace, device="cuda", root=ROOT, log=None, eng
 
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
     cell, cfg_file, cfg, traffic, metrics = resolve(name, trace, root)
+    slot, method = judged_by(cell, traffic)
     cuda = device != "cpu"
 
     path, cold, build_s = deploy.ensure(root, cfg_file, device, log)
@@ -307,7 +325,7 @@ def run_cell(name, seed, seconds, trace, device="cuda", root=ROOT, log=None, eng
                     if len(res) != B:
                         res = list(res)[:B] + [None] * max(B - len(res), 0)
                     failed += res.count(None)
-                    sampler.add(pos, qs, work, u, lambda i: _answer(res[i]))
+                    sampler.add(pos, qs, work, u, lambda i: _answer(res[i], slot))
                     pos += B
                     if t4 >= deadline:
                         break
@@ -336,7 +354,8 @@ def run_cell(name, seed, seconds, trace, device="cuda", root=ROOT, log=None, eng
     t_ref = time.perf_counter()
     sample = sampler.picks()
     ref = reference.Reference(coll, cfg["bm25_k1"], cfg["bm25_b"])
-    checks = reference.judge([g for _, g in sample], [ref.ranked_and(t, k) for t, _ in sample])
+    answer = getattr(ref, method)
+    checks = reference.judge([g for _, g in sample], [answer(t, k) for t, _ in sample])
     correct = reference.passes(checks)
 
     values = {m["name"]: (m, read(run)) for m, read in metrics}
@@ -382,15 +401,15 @@ def planned_queries(took, seconds, B):
     return (int(PREFETCH_MARGIN * seconds / pace) + 1) * B
 
 
-def _answer(r):
-    """The ranked AND scores of one result tuple, copied out of the
-    download buffer; None for a result that did not come."""
+def _answer(r, slot):
+    """The scores in `slot` of one result tuple (JUDGED), copied out of
+    the download buffer; None for a result that did not come."""
     import numpy as np
 
     if r is None:
         return None
     try:
-        return np.array(r[3], dtype=np.float32)
+        return np.array(r[slot], dtype=np.float32)
     except (TypeError, IndexError, ValueError):
         return None
 

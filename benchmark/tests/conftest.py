@@ -1,7 +1,7 @@
 """Fixtures of the benchmark's own tests: a checkout-like root in a
 temporary directory, holding a BENCHMARK.json of tiny cells (2,000
-docs) and the benchmark's traffic mixes and metric readers, whose runs
-the tests drive on the CPU through run.run_cell."""
+docs), the benchmark's traffic mixes and metric readers and the tests'
+own mixes, whose runs the tests drive on the CPU through run.run_cell."""
 
 import json
 import os
@@ -20,6 +20,14 @@ TINY = {"num_docs": 2000, "num_terms": 22000, "postings_target": 300000}
 CELLS = {
     "tiny_block.and_skip-b1024": ("tiny_block", "and_skip-b1024"),
     "tiny_opt.and-b1024": ("tiny_opt", "and-b1024"),
+    "tiny_block.wand-b1024": ("tiny_block", "wand-b1024"),
+}
+# mixes of the tests alone, written into the root beside the benchmark's:
+# top-10 ranked OR with WAND, the judged OR path that no cell runs yet
+MIXES = {
+    "wand-b1024": {"name": "wand-b1024", "why": "test", "batch": 1024, "ops": ["or"],
+                   "prune": True, "warmup_batches": 8, "query_len_p": [0.25] * 4,
+                   "term_df_power": 0.5},
 }
 
 
@@ -29,6 +37,9 @@ def make_root(path):
     bench = os.path.join(path, "benchmark")
     for sub in ("traffic", "metrics"):
         shutil.copytree(os.path.join(BENCH, sub), os.path.join(bench, sub))
+    for name, mix in MIXES.items():
+        with open(os.path.join(bench, "traffic", f"{name}.json"), "w") as f:
+            json.dump(mix, f)
     os.makedirs(os.path.join(bench, "configs"))
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
         spec = json.load(f)

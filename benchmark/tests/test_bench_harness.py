@@ -18,6 +18,7 @@ from conftest import BENCH, CELLS, make_root
 
 PRUNED = "tiny_block.and_skip-b1024"
 EXHAUSTIVE = "tiny_opt.and-b1024"
+WAND = "tiny_block.wand-b1024"
 
 
 def test_banned_modules_by_whole_top_level_name():
@@ -148,13 +149,13 @@ def test_traced_run_reports_its_metrics(tiny_root, name):
 
 @pytest.mark.parametrize("precision", ["bf16", "f16"])
 @pytest.mark.parametrize("seed", [1, 2, 3])
-def test_control_reads_not_correct(tiny_root, seed, precision):
-    _run(tiny_root, EXHAUSTIVE, seed)  # builds the configuration
-    numbers, n = control.reading(EXHAUSTIVE, seed, 8 * 1024, root=tiny_root,
-                                 precision=precision)
+@pytest.mark.parametrize("name", [EXHAUSTIVE, WAND])
+def test_control_reads_not_correct(tiny_root, name, seed, precision):
+    _run(tiny_root, name, seed)  # builds the configuration
+    numbers, n = control.reading(name, seed, 8 * 1024, root=tiny_root, precision=precision)
     assert n > 1000 and not reference.passes(numbers), numbers
     assert numbers["missing"] == numbers["len_mismatch"] == 0
-    exact, _ = control.reading(EXHAUSTIVE, seed, 8 * 1024, root=tiny_root, precision="f32")
+    exact, _ = control.reading(name, seed, 8 * 1024, root=tiny_root, precision="f32")
     assert exact == {"missing": 0, "len_mismatch": 0, "max_rel_gap": 0.0}
 
 
@@ -171,27 +172,61 @@ def _half_batch(eng):
 
 
 def _altered_answer(eng):
-    """Every score altered by 1% where the answers are produced."""
+    """Every score, ranked OR's and ranked AND's, altered by 1% where the
+    answers are produced."""
     collect = eng.collect
 
+    def alter(r):
+        return None if r is None else np.where(np.isfinite(r), r * np.float32(1.01), r)
+
     def altered(plan, pending):
-        return [(a, o, r_or, np.where(np.isfinite(r), r * np.float32(1.01), r))
-                for a, o, r_or, r in collect(plan, pending)]
+        return [(a, o, alter(r_or), alter(r)) for a, o, r_or, r in collect(plan, pending)]
 
     eng.collect = altered
 
 
 @pytest.mark.parametrize("fault", [_half_batch, _altered_answer])
-@pytest.mark.parametrize("name", [PRUNED, EXHAUSTIVE])
+@pytest.mark.parametrize("name", [PRUNED, EXHAUSTIVE, WAND])
 def test_a_broken_timed_path_reads_not_correct(tiny_root, name, fault):
     out, checks = _run(tiny_root, name, 2**31 + 17, hook=fault)
     assert not out["correct"], checks
 
 
+def test_wand_run_is_judged_against_ranked_or(tiny_root, monkeypatch):
+    out, checks = _run(tiny_root, WAND, 2**31 + 23)
+    assert out["correct"] and out["failed"] == 0 and out["compared"] > 100, checks
+    assert set(out["metrics"]) == {"qps", "p95_batch_ms", "setup_s"}
+    assert checks["missing"] == checks["len_mismatch"] == 0
+    # the same answers judged as ranked AND ones fail: the reference matters
+    monkeypatch.setitem(run.JUDGED, ("or",), (2, "ranked_and"))
+    out, checks = _run(tiny_root, WAND, 2**31 + 23)
+    assert not out["correct"] and checks["len_mismatch"] > 0, checks
+
+
+def test_unjudged_ops_exit_before_the_cell_is_built(tmp_path):
+    root = make_root(tmp_path)
+    with open(os.path.join(root, "benchmark", "traffic", "or_and-b7.json"), "w") as f:
+        json.dump({"name": "or_and-b7", "why": "t", "batch": 7, "ops": ["or", "and"],
+                   "prune": False, "warmup_batches": 1, "query_len_p": [0, 1],
+                   "term_df_power": 1.0}, f)
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        spec = json.load(f)
+    spec["workloads"].append({"name": "tiny_opt.or_and-b7", "config": "tiny_opt",
+                              "traffic": "or_and-b7", "chips": 1, "why": "w"})
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
+        json.dump(spec, f)
+    opened = []
+    with pytest.raises(SystemExit, match=r"traffic/or_and-b7\.json"):
+        _run(root, "tiny_opt.or_and-b7", 1, hook=opened.append)
+    with pytest.raises(SystemExit, match=r"traffic/or_and-b7\.json"):
+        control.reading("tiny_opt.or_and-b7", 1, 7, root=root)
+    assert not opened and not os.path.exists(os.path.join(root, "build"))
+
+
 @pytest.mark.cuda
 def test_card_run_is_correct(tmp_path, cuda_card):
     root = make_root(tmp_path)
-    for name in (PRUNED, EXHAUSTIVE):
+    for name in (PRUNED, EXHAUSTIVE, WAND):
         out, checks = run.run_cell(name, 2**31 + 3, 2.0, 1, device="cuda", root=root,
                                    log=lambda msg: None)
         assert out["correct"], checks

@@ -51,6 +51,61 @@ def test_reference_matches_port_cpu(tiny, index_type):
         exhaustive = got
 
 
+def test_ranked_or_matches_port_cpu(tiny):
+    """The port's exhaustive ranked_or and its WAND against the
+    reference's ranked_or."""
+    from ds2i_torch.engine import ResidentEngine
+    from ds2i_torch.global_params import GlobalParameters
+    from ds2i_torch.index.types import make_index_type
+    from ds2i_torch.io import BinaryFreqCollection, read_sizes
+    from ds2i_torch.queries import WandData
+
+    base, coll, qs = tiny
+    pcoll = BinaryFreqCollection(base)
+    b = make_index_type("block_optpfor").builder(pcoll.num_docs, GlobalParameters())
+    for docs, freqs in pcoll:
+        b.add_posting_list(len(docs), docs, freqs, int(np.asarray(freqs, np.int64).sum()))
+    eng = ResidentEngine(b.build(), WandData.build(read_sizes(base), pcoll), device="cpu")
+    ref = reference.Reference(coll)
+    exp = [ref.ranked_or(q, 10) for q in qs]
+    assert sum(len(e) == 10 for e in exp) > 300
+    for prune in (False, True):
+        got = [r[2] for r in eng.execute(eng.prepare(qs, k=10, ops=("or",), prune=prune))]
+        numbers = reference.judge(got, exp)
+        assert reference.passes(numbers), (prune, numbers)
+
+
+class _Three:
+    """Three documents of equal size (each norm 1, so den = k1 = 1.2) and
+    two terms: term 0 in documents 0 and 1, term 1 in documents 1 and 2,
+    among num_docs = 10 (idf ln(8.5 / 2.5) for both)."""
+
+    num_docs = 10
+    sizes = np.full(10, 4, np.uint32)
+    lists = {0: ([0, 1], [1, 2]), 1: ([1, 2], [3, 4])}
+
+    def list(self, t):
+        docs, freqs = self.lists[t]
+        return np.array(docs, np.uint32), np.array(freqs, np.uint32)
+
+
+def test_ranked_or_on_a_hand_worked_collection():
+    ref = reference.Reference(_Three())
+    qw = 2.2 * np.log(8.5 / 2.5)
+
+    def w(f):
+        return f / (f + 1.2)
+
+    doc0, doc1, doc2 = qw * w(1), qw * (w(2) + w(3)), qw * w(4)
+    got = ref.ranked_or([1, 0], 10)
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, [doc1, doc2, doc0], rtol=1e-6)
+    np.testing.assert_allclose(ref.ranked_or([0, 1], 2), [doc1, doc2], rtol=1e-6)
+    # a document that holds one term only scores that term alone
+    np.testing.assert_allclose(ref.ranked_or([0], 10), [qw * w(2), doc0], rtol=1e-6)
+    np.testing.assert_allclose(ref.ranked_and([0, 1], 10), [doc1], rtol=1e-6)
+
+
 def test_reference_imports_nothing_of_the_port():
     names = set()
     for mod in ("reference.py", "corpus.py"):
