@@ -1,0 +1,12 @@
+"""device_idle_pct.latency: the reading of device_idle_pct.py, in the cells
+that report p95_batch_ms and not qps end to end, where it moves
+p95_batch_ms."""
+
+import importlib.util
+import os
+
+_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "device_idle_pct.py")
+_spec = importlib.util.spec_from_file_location("metrics.device_idle_pct_base", _path)
+_base = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_base)
+read = _base.read

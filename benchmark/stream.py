@@ -7,7 +7,9 @@ the square root, is the port's generator's law for its query log). The
 stream is cut into chunks of CHUNK queries; chunk c of part p is a
 function of (seed, p, c) alone, so the same seed gives the same queries
 however far a run reads. Part 0 is the measured window's, part 1 the
-warm-up's.
+warm-up's, part 2 the training log of a transformed configuration
+(deploy.py), drawn with its `corpus_seed`: no run's window or warm-up
+reads it, whatever the run's seed.
 
 Beside each query the stream keeps its work (the summed lengths of its
 lists) and a uniform draw u_i in [0, 1) for Algorithm R's reservoir
@@ -22,7 +24,7 @@ the measured window is a slice of queries already drawn.
 import numpy as np
 
 CHUNK = 1 << 15
-WINDOW, WARMUP = 0, 1
+WINDOW, WARMUP, TRAIN = 0, 1, 2
 # buckets of the inverse-cdf table (a power of two, so u * BUCKETS is exact)
 BUCKETS = 1 << 22
 

@@ -1,7 +1,10 @@
 """Fixtures of the benchmark's own tests: a checkout-like root in a
 temporary directory, holding a BENCHMARK.json of tiny cells (2,000
 docs), the benchmark's traffic mixes and metric readers and the tests'
-own mixes, whose runs the tests drive on the CPU through run.run_cell."""
+own mixes, whose runs the tests drive on the CPU through run.run_cell.
+One tiny configuration, tiny_mixed, is built by transformation of
+another's index (deploy.py's optimal hybrid), under the tests' own
+decode-time model."""
 
 import json
 import os
@@ -21,7 +24,19 @@ CELLS = {
     "tiny_block.and_skip-b1024": ("tiny_block", "and_skip-b1024"),
     "tiny_opt.and-b1024": ("tiny_opt", "and-b1024"),
     "tiny_block.wand-b1024": ("tiny_block", "wand-b1024"),
+    "tiny_mixed.and-b1024": ("tiny_mixed", "and-b1024"),
 }
+# tiny_mixed: the optimal hybrid of tiny_block's index, under a decode-time
+# model of the tests' own (dec_time_regression's TSV, one line a block
+# type: PFOR, VARINT, INTERPOLATIVE) in which Varint-G8IU decodes fastest
+# and interpolative slowest, so that at the source's space the greedy
+# gives full blocks all three codecs
+PREDICTORS = ("type 0 bias 1.0 size 0.1\n"
+              "type 1 bias 0.5 nonzeros 0.01\n"
+              "type 2 bias 2.0 size 0.1\n")
+TRANSFORM = {"from": "tiny_block", "method": "optimal_hybrid",
+             "predictors": "benchmark/configs/tiny_mixed.predictors.tsv",
+             "train_traffic": "and-b1024", "train_queries": 20000, "budget_share": 1.0}
 # mixes of the tests alone, written into the root beside the benchmark's:
 # top-10 ranked OR with WAND, the judged OR path that no cell runs yet
 MIXES = {
@@ -44,10 +59,15 @@ def make_root(path):
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
         spec = json.load(f)
     spec["configs"] = []
-    for name, base in (("tiny_block", "block_optpfor-50x"), ("tiny_opt", "opt-5x")):
+    with open(os.path.join(path, TRANSFORM["predictors"]), "w") as f:
+        f.write(PREDICTORS)
+    for name, base, extra in (
+            ("tiny_block", "block_optpfor-50x", {}), ("tiny_opt", "opt-5x", {}),
+            ("tiny_mixed", "block_optpfor-50x",
+             {"index_type": "block_mixed", "transform": TRANSFORM})):
         with open(os.path.join(BENCH, "configs", f"{base}.json")) as f:
             cfg = json.load(f)
-        cfg.update(name=name, **TINY)
+        cfg.update(name=name, **TINY, **extra)
         rel = f"benchmark/configs/{name}.json"
         with open(os.path.join(path, rel), "w") as f:
             json.dump(cfg, f)
@@ -55,8 +75,13 @@ def make_root(path):
                                 "reduced": sorted(TINY), "why": "a tiny test size"})
     spec["workloads"] = [{"name": n, "config": c, "traffic": t, "chips": 1, "why": "test"}
                          for n, (c, t) in CELLS.items()]
+    # every tiny cell reports every end-to-end metric, and every per-layer
+    # metric but decode_roofline, which goes to the exhaustive cells alone
+    for m in spec["end_to_end"]:
+        m.pop("workloads", None)
     for m in spec["per_layer"]:
-        m["workloads"] = [n for n in CELLS if "opt" in n or m["name"] != "decode_roofline"]
+        m["workloads"] = [n for n, (_, t) in CELLS.items()
+                          if t == "and-b1024" or m["name"] != "decode_roofline"]
     with open(os.path.join(path, "BENCHMARK.json"), "w") as f:
         json.dump(spec, f, indent=1)
     return str(path)

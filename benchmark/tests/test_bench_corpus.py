@@ -54,6 +54,19 @@ def test_stream_is_a_function_of_the_seed():
     assert warm.batch(0, 50)[0] != a.batch(0, 50)[0]
 
 
+def test_train_part_is_read_by_no_run():
+    """A transformed configuration's training log (part TRAIN, drawn with
+    its corpus_seed) is neither the window's nor the warm-up's queries of
+    a run, even of a run whose seed is that corpus_seed."""
+    lens = np.random.default_rng(4).zipf(1.5, 40_000).clip(1, 8000)
+    law = [0.25] * 4
+    assert len({stream.WINDOW, stream.WARMUP, stream.TRAIN}) == 3
+    train = stream.Stream(lens, 1729, law, part=stream.TRAIN).batch(0, stream.CHUNK)[0]
+    for part in (stream.WINDOW, stream.WARMUP):
+        other = stream.Stream(lens, 1729, law, part=part).batch(0, stream.CHUNK)[0]
+        assert sum(a == b for a, b in zip(train, other)) < stream.CHUNK // 10
+
+
 def test_stream_draws_by_square_root_of_length():
     lens = np.random.default_rng(1).zipf(1.4, 20_000).clip(1, 20_000)
     s = stream.Stream(lens, 1, [0.25] * 4)

@@ -1,6 +1,7 @@
 """The harness driven on the CPU at a tiny size: discovery of cells by
 name, the no-JAX check, the roofline's byte count, the per-run engine
-state, and `correct` against the control and planted faults."""
+state, set-up time without cold builds (a transformed configuration's
+chain too), and `correct` against the control and planted faults."""
 
 import ast
 import glob
@@ -19,6 +20,7 @@ from conftest import BENCH, CELLS, make_root
 PRUNED = "tiny_block.and_skip-b1024"
 EXHAUSTIVE = "tiny_opt.and-b1024"
 WAND = "tiny_block.wand-b1024"
+MIXED = "tiny_mixed.and-b1024"
 
 
 def test_banned_modules_by_whole_top_level_name():
@@ -89,6 +91,29 @@ def test_new_files_are_found_by_name(tmp_path):
         "qps", "p95_batch_ms", "setup_s"]
 
 
+@pytest.mark.parametrize("name", [w["name"] for w in run.load_json(run.ROOT, "BENCHMARK.json")[
+    "workloads"]])
+def test_each_cell_reads_what_its_metrics_move(name):
+    """Each cell of BENCHMARK.json reports setup_s and another end-to-end
+    metric, and per-layer metrics that each move one it reports, every
+    metric with a reader of its own; the latency copies read as their
+    originals do."""
+    spec = run.load_json(run.ROOT, "BENCHMARK.json")
+    _, _, e2e, layer = run.cell_spec(spec, name)
+    reported = {m["name"] for m in e2e}
+    assert "setup_s" in reported and len(reported) >= 2 and layer
+    assert all(m["moves"] in reported for m in layer), [(m["name"], m["moves"]) for m in layer]
+    r = run.Run({}, {}, None, None)
+    r.sizes, r.prepare_s, r.seconds = [4, 4], [1e-3, 3e-3], 0.5
+    r.trace = {"window_s": 0.5, "busy_s": 0.1,
+               "kernels": {"pair_part_kernel": (2, 1e-4), "join_kernel": (2, 2e-4)}}
+    for m in e2e + layer:
+        read = run.metric_reader(m["name"])
+        base = m["name"].rsplit(".", 1)[0]
+        if m["name"].endswith(".latency"):
+            assert read(r) == run.metric_reader(base)(r) is not None, m["name"]
+
+
 def _run(root, name, seed, trace=0, hook=None):
     out, checks = run.run_cell(name, seed, 0.5, trace, device="cpu", root=root,
                                log=lambda msg: None, engine_hook=hook)
@@ -115,15 +140,26 @@ def test_pruned_run_is_correct_and_leaves_no_theta_file(tiny_root):
     assert not glob.glob(os.path.join(state, f"*{deploy.THETA}*"))
 
 
-def test_setup_s_leaves_out_the_cold_build(tmp_path, monkeypatch):
+@pytest.mark.parametrize("name, builds", [(EXHAUSTIVE, 1), (MIXED, 2)])
+def test_setup_s_leaves_out_the_cold_build(tmp_path, monkeypatch, name, builds):
+    """A transformed configuration's cold set-up is a chain of two builds
+    in child processes (its source's, then the transform), both left out."""
     import time
 
     root = make_root(tmp_path)
+    children = []
+    build_in_child = deploy.build_in_child
+
+    def timed(*args):
+        children.append(build_in_child(*args))
+        return children[-1]
+
+    monkeypatch.setattr(deploy, "build_in_child", timed)
     lines = []
     for _ in range(2):
         t = time.time()
         monkeypatch.setattr(run, "T_START", t)  # the run's process start
-        out, _ = run.run_cell(EXHAUSTIVE, 2**31 + 9, 0.3, 0, device="cpu", root=root,
+        out, _ = run.run_cell(name, 2**31 + 9, 0.3, 0, device="cpu", root=root,
                               log=lines.append)
         wall = time.time() - t
         rec = json.loads([m for m in lines if m.startswith("setup ")][-1][len("setup "):])
@@ -133,6 +169,7 @@ def test_setup_s_leaves_out_the_cold_build(tmp_path, monkeypatch):
     cold, warm = [json.loads(m[len("setup "):]) for m in lines if m.startswith("setup ")]
     assert cold["setup"] == "cold" and cold["cold_build_s"] > 0
     assert warm["setup"] == "warm" and warm["cold_build_s"] == 0.0
+    assert len(children) == builds and cold["cold_build_s"] >= sum(children)
     # the window's queries were drawn in set-up
     assert cold["late_chunks"] == warm["late_chunks"] == 0 and warm["prefetched"] >= 1
 
@@ -149,9 +186,9 @@ def test_traced_run_reports_its_metrics(tiny_root, name):
 
 @pytest.mark.parametrize("precision", ["bf16", "f16"])
 @pytest.mark.parametrize("seed", [1, 2, 3])
-@pytest.mark.parametrize("name", [EXHAUSTIVE, WAND])
+@pytest.mark.parametrize("name", [EXHAUSTIVE, WAND, MIXED])
 def test_control_reads_not_correct(tiny_root, name, seed, precision):
-    _run(tiny_root, name, seed)  # builds the configuration
+    deploy.ensure(tiny_root, run.resolve(name, False, tiny_root)[1], "cpu", lambda msg: None)
     numbers, n = control.reading(name, seed, 8 * 1024, root=tiny_root, precision=precision)
     assert n > 1000 and not reference.passes(numbers), numbers
     assert numbers["missing"] == numbers["len_mismatch"] == 0
@@ -186,7 +223,7 @@ def _altered_answer(eng):
 
 
 @pytest.mark.parametrize("fault", [_half_batch, _altered_answer])
-@pytest.mark.parametrize("name", [PRUNED, EXHAUSTIVE, WAND])
+@pytest.mark.parametrize("name", [PRUNED, EXHAUSTIVE, WAND, MIXED])
 def test_a_broken_timed_path_reads_not_correct(tiny_root, name, fault):
     out, checks = _run(tiny_root, name, 2**31 + 17, hook=fault)
     assert not out["correct"], checks
@@ -226,7 +263,7 @@ def test_unjudged_ops_exit_before_the_cell_is_built(tmp_path):
 @pytest.mark.cuda
 def test_card_run_is_correct(tmp_path, cuda_card):
     root = make_root(tmp_path)
-    for name in (PRUNED, EXHAUSTIVE, WAND):
+    for name in (PRUNED, EXHAUSTIVE, WAND, MIXED):
         out, checks = run.run_cell(name, 2**31 + 3, 2.0, 1, device="cuda", root=root,
                                    log=lambda msg: None)
         assert out["correct"], checks
